@@ -19,6 +19,11 @@ except ImportError:  # gate the missing dep: deterministic fallback shim
     sys.modules["hypothesis.strategies"] = _hypothesis_fallback.strategies
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one)")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
