@@ -7,13 +7,29 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc``, holds each kernel bit for bit against its plain PyTorch version
 on the card (sentinel edge cases, batched rows, and the main path's own
-shapes), drives the main path — ``Solver(mode="vc_kernel_bsearch",
-layout="bcsr").solve(...)`` on a DIMACS Washington random-level graph of
-about a million vertices — checks its value against scipy's Dinic and its
-final state against the plain ``vc`` mode, checks that one engine chunk
-of cycles and of global-relabel sweeps never synchronises with the host,
+shapes), and drives three paths, each with the launch counts set to 0
+just before it and read just after:
+
+* the main path — ``Solver(mode="vc_kernel_bsearch",
+  layout="bcsr").solve(...)`` on a DIMACS Washington random-level graph
+  of about a million vertices — whose value is held against scipy's
+  Dinic and whose final state against the plain ``vc`` mode;
+* the fused path — ``Solver(mode="vc_fused").solve(...)`` on the same
+  graph, held against the plain ``vc`` mode bit for bit (its cadence of
+  1024 cycles is a multiple of K = 8);
+* the batched path — ``Solver(backend="batched", mode=m).solve_many(...)``
+  on 8 instances of ``washington_rlg(256, 256)`` for ``m`` in
+  ``vc_fused``, ``vc_kernel_bsearch`` and ``vc``, each value held against
+  scipy's Dinic, and a telemetry solve against its own counters.
+
+The fused discharge is also held against its plain version at the
+batched path's own shapes (after the first global relabel and mid-solve)
+and on more rows than the card holds resident blocks.  It checks that one
+engine chunk of cycles (``vc_kernel_bsearch`` and ``vc_fused``, single and
+batched) and of global-relabel sweeps never synchronises with the host,
 and times every kernel beside its plain version, a PyTorch yardstick call
-and its memory bound.
+where one exists and its memory bound, and each step's host, wall and
+device time.
 
 Prints one JSON line per phase, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -41,13 +57,23 @@ HBM_BYTES_PER_S = 3.35e12
 REPLACES = {
     "segmin": "src/repro/kernels/segmin.py:104",
     "revsearch": "src/repro/kernels/revsearch.py:67",
+    "discharge": "src/repro/kernels/discharge.py:182",
 }
 SEED = 7
 #: CUDA-event timings per median
 REPS = 25
-#: (rows, cols) of the main path's washington_rlg graph, and of the
-#: smaller one that ``vc_kernel`` solves: the full run and ``--quick``
-SIZES = {False: ((1024, 1024), (256, 256)), True: ((128, 128), (64, 64))}
+#: (rows, cols) of the main path's washington_rlg graph, of the smaller
+#: one that ``vc_kernel`` solves, and of each instance of the batched
+#: path: the full run and ``--quick``
+SIZES = {False: ((1024, 1024), (256, 256), (256, 256)),
+         True: ((128, 128), (64, 64), (32, 32))}
+#: instances of the batched path (seeds SEED, SEED + 1, ...)
+BATCH = 8
+#: the batched path's modes
+BATCH_MODES = ("vc_fused", "vc_kernel_bsearch", "vc")
+#: the kernels' launch counters, by the name the ``kernels`` line uses
+KERNELS = ("tile_min_neighbor[avq]", "tile_min_neighbor[dense]",
+           "bcsr_rev_search", "fused_discharge_batched")
 
 
 def emit(obj) -> None:
@@ -127,72 +153,159 @@ def scipy_maxflow(n, edges, cap, s, t):
     return value, time.perf_counter() - t0
 
 
-def main_path_and_modes(small, torch, problem, oracle):
-    """Phases 4 and 5: the main path's solve, the kernel modes against
-    the plain ``vc`` path, and last the main path's value against the
-    scipy ``oracle`` (an ``AsyncResult``, computed meanwhile).  Returns
-    the main path's kernel launch counts."""
-    from repro_torch.api import MaxflowProblem, Solver, SolverOptions
-    from repro_torch.graphs.generators import washington_rlg
+def reset_counts() -> None:
+    """Every kernel wrapper's launch counter to 0."""
+    from repro_torch.kernels.discharge import fused_discharge_batched
     from repro_torch.kernels.revsearch import bcsr_rev_search
     from repro_torch.kernels.segmin import tile_min_neighbor
 
-    def solve(mode, prob):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sol = Solver(SolverOptions(mode=mode, layout="bcsr")).solve(prob)
-        torch.cuda.synchronize()
-        return sol, time.perf_counter() - t0
-
     tile_min_neighbor.launches = tile_min_neighbor.dense_launches = 0
-    bcsr_rev_search.launches = 0
-    main, wall = solve("vc_kernel_bsearch", problem)
-    launches = {
-        "tile_min_neighbor[avq]": (tile_min_neighbor.launches
-                                   - tile_min_neighbor.dense_launches),
-        "tile_min_neighbor[dense]": tile_min_neighbor.dense_launches,
-        "bcsr_rev_search": bcsr_rev_search.launches,
-    }
+    bcsr_rev_search.launches = fused_discharge_batched.launches = 0
+
+
+def launch_counts() -> dict:
+    """The kernels' launch counters, by the names of ``KERNELS``."""
+    from repro_torch.kernels.discharge import fused_discharge_batched
+    from repro_torch.kernels.revsearch import bcsr_rev_search
+    from repro_torch.kernels.segmin import tile_min_neighbor
+
+    return dict(zip(KERNELS, (
+        tile_min_neighbor.launches - tile_min_neighbor.dense_launches,
+        tile_min_neighbor.dense_launches, bcsr_rev_search.launches,
+        fused_discharge_batched.launches)))
+
+
+def driven(torch, fn, expect=()):
+    """Run one path, ``fn()``, with the launch counts set to 0 just before
+    it and read just after; fail if a kernel of ``expect`` never launched.
+    Returns ``(result, wall seconds, counts)``."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    for name in expect:
+        require(counts[name] > 0, f"{name} never launched on this path")
+    return out, wall, counts
+
+
+def same_solution(torch, sol_a, sol_b, what):
+    """Two solutions agree in value, counts and final ``res/h/e``."""
+    for f in ("cycles", "rounds", "global_relabels", "gr_sweeps"):
+        require(getattr(sol_a.stats, f) == getattr(sol_b.stats, f),
+                f"{what}: {f} {getattr(sol_a.stats, f)} != "
+                f"{getattr(sol_b.stats, f)}")
+    require(sol_a.value == sol_b.value, f"{what}: value differs")
+    for f in ("res", "h", "e"):
+        require(torch.equal(getattr(sol_a.state, f),
+                            getattr(sol_b.state, f)),
+                f"{what}: final {f} differs")
+
+
+def main_path_and_modes(small, torch, problem, batch, oracles):
+    """Phases 4 and 5: the main path's solve, the kernel modes and the
+    fused path against the plain ``vc`` path, the batched path, and last
+    every value against the scipy ``oracles`` (``AsyncResult``s, computed
+    meanwhile: the main graph's, then one per batched instance).
+    Returns the kernels' launch counts of each path."""
+    from repro_torch.api import MaxflowProblem, Solver, SolverOptions
+    from repro_torch.core import batched
+    from repro_torch.graphs.generators import washington_rlg
+
+    def solve(mode, prob, expect=()):
+        return driven(torch, lambda: Solver(SolverOptions(
+            mode=mode, layout="bcsr")).solve(prob), expect)
+
+    main, wall, launches = solve("vc_kernel_bsearch", problem, KERNELS[:3])
     st = main.stats
     emit({"phase": "main_path", "mode": "vc_kernel_bsearch", "wall_s": wall,
           "value": main.value, "cycles": st.cycles, "rounds": st.rounds,
           "global_relabels": st.global_relabels, "gr_sweeps": st.gr_sweeps,
           "launches": launches,
           "ms_per_cycle_plus_sweep": 1e3 * wall / (st.cycles + st.gr_sweeps)})
-    for name, count in launches.items():
-        require(count > 0, f"{name} never launched on the main path")
+    paths = {"main": launches}
 
-    # -- 5. kernel modes against the plain torch path -----------------------
-    def same(sol_a, sol_b, what):
-        for f in ("cycles", "rounds", "global_relabels", "gr_sweeps"):
-            require(getattr(sol_a.stats, f) == getattr(sol_b.stats, f),
-                    f"{what}: {f} {getattr(sol_a.stats, f)} != "
-                    f"{getattr(sol_b.stats, f)}")
-        require(sol_a.value == sol_b.value, f"{what}: value differs")
-        for f in ("res", "h", "e"):
-            require(torch.equal(getattr(sol_a.state, f),
-                                getattr(sol_b.state, f)),
-                    f"{what}: final {f} differs")
-
-    plain, wall_vc = solve("vc", problem)
-    same(main, plain, "vc_kernel_bsearch vs vc")
+    # -- 5. kernel modes and the fused path against the plain torch path ---
+    plain, wall_vc, _ = solve("vc", problem)
+    same_solution(torch, main, plain, "vc_kernel_bsearch vs vc")
     g_s, s_s, t_s = washington_rlg(*small, seed=SEED)
     p_small = MaxflowProblem(g_s, s_s, t_s)
     p_small.residual("bcsr")
-    k_small, wall_k = solve("vc_kernel", p_small)
-    v_small, wall_v = solve("vc", p_small)
-    same(k_small, v_small, "vc_kernel vs vc")
+    k_small, wall_k, _ = solve("vc_kernel", p_small)
+    v_small, wall_v, _ = solve("vc", p_small)
+    same_solution(torch, k_small, v_small, "vc_kernel vs vc")
     emit({"phase": "modes_vs_plain", "ok": True, "vc_wall_s": wall_vc,
           "small_graph": f"washington_rlg({small[0]}, {small[1]}, "
           f"seed={SEED})",
           "small_value": k_small.value, "small_cycles": k_small.stats.cycles,
           "small_vc_kernel_wall_s": wall_k, "small_vc_wall_s": wall_v})
 
-    want, t_scipy = oracle.get()
+    fused, wall_f, paths["fused"] = solve(
+        "vc_fused", problem, ("fused_discharge_batched",
+                              "tile_min_neighbor[dense]"))
+    same_solution(torch, fused, plain, "vc_fused vs vc")
+    emit({"phase": "fused_path", "mode": "vc_fused", "wall_s": wall_f,
+          "value": fused.value, "cycles": fused.stats.cycles,
+          "rounds": fused.stats.rounds, "gr_sweeps": fused.stats.gr_sweeps,
+          "launches": paths["fused"], "same_as_vc": True})
+
+    # -- 5b. the batched path -----------------------------------------------
+    sols = {}
+    expect = {"vc_fused": ("fused_discharge_batched",
+                           "tile_min_neighbor[dense]"),
+              "vc_kernel_bsearch": KERNELS[:3], "vc": ()}
+    for mode in BATCH_MODES:
+        sols[mode], wall_b, paths[f"batched[{mode}]"] = driven(
+            torch, lambda mode=mode: Solver(
+                backend="batched", mode=mode).solve_many(batch),
+            expect[mode])
+        emit({"phase": "batched_path", "mode": mode, "batch": len(batch),
+              "wall_s": wall_b, "values": [x.value for x in sols[mode]],
+              "cycles": [x.stats.cycles for x in sols[mode]],
+              "global_relabels": sols[mode][0].stats.global_relabels,
+              "gr_sweeps": sols[mode][0].stats.gr_sweeps,
+              "launches": paths[f"batched[{mode}]"]})
+    for i, (a, b) in enumerate(zip(sols["vc_kernel_bsearch"], sols["vc"])):
+        same_solution(torch, a, b, f"batched vc_kernel_bsearch vs vc [{i}]")
+    # the fused mode's pushed-flag exit looks at whole launches, so a row
+    # may run up to K - 1 cycles more; where a row's cycles and the batch's
+    # rounds match, its final state must match too
+    same_rows = 0
+    for i, (a, b) in enumerate(zip(sols["vc_fused"], sols["vc"])):
+        require(a.value == b.value, "batched vc_fused value differs")
+        if (a.stats.cycles == b.stats.cycles
+                and a.stats.rounds == b.stats.rounds
+                and a.stats.gr_sweeps == b.stats.gr_sweeps):
+            same_solution(torch, a, b, f"batched vc_fused vs vc [{i}]")
+            same_rows += 1
+    emit({"phase": "batched_fused_vs_vc", "rows_state_equal": same_rows,
+          "rows": len(batch)})
+    insts = [(p.residual("bcsr"), p.s, p.t) for p in batch]
+    tel = batched.batched_solve_impl(insts, mode="vc_fused", telemetry=True)
+    require((tel.pushes + tel.relabels == tel.active_sum).all(),
+            "telemetry: pushes + relabels != active")
+    require(tel.maxflows.tolist() == [x.value for x in sols["vc_fused"]]
+            and tel.cycles.tolist() == [x.stats.cycles
+                                        for x in sols["vc_fused"]],
+            "telemetry changed the batched vc_fused solve")
+    emit({"phase": "batched_telemetry", "ok": True,
+          "pushes": tel.pushes.tolist(), "relabels": tel.relabels.tolist(),
+          "active_sum": tel.active_sum.tolist(),
+          "frontier_sum": tel.frontier_sum.tolist()})
+
+    want, t_scipy = oracles[0].get()
     emit({"phase": "oracle", "scipy_dinic_s": t_scipy, "scipy_value": want})
     require(main.value == want,
             f"vc_kernel_bsearch value {main.value} != scipy Dinic {want}")
-    return launches
+    got = [o.get() for o in oracles[1:]]
+    emit({"phase": "batched_oracle", "scipy_values": [v for v, _ in got],
+          "scipy_dinic_s": [x for _, x in got]})
+    for mode in BATCH_MODES:
+        require([x.value for x in sols[mode]] == [v for v, _ in got],
+                f"batched {mode} values != scipy Dinic")
+    return paths
 
 
 def main(argv=None) -> int:
@@ -200,7 +313,7 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="rehearse on small graphs; prints no result")
     args = ap.parse_args(argv)
-    (rows, cols), small = SIZES[args.quick]
+    (rows, cols), small, bsize = SIZES[args.quick]
 
     import torch
 
@@ -242,20 +355,22 @@ def main(argv=None) -> int:
     import numpy as np
 
     from repro_torch.api import MaxflowProblem
-    from repro_torch.core import engine, globalrelabel
+    from repro_torch.core import batched, engine, globalrelabel
     from repro_torch.core import pushrelabel as pr
     from repro_torch.core.csr import Graph, build_residual
     from repro_torch.graphs.generators import random_sparse, washington_rlg
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.discharge import (K_DEFAULT,
+                                               fused_discharge_batched,
+                                               fused_discharge_batched_plain)
     from repro_torch.kernels.revsearch import bcsr_rev_search, search_steps
     from repro_torch.kernels.segmin import (tile_min_neighbor,
                                             tile_min_neighbor_plain)
 
     dev = torch.device("cuda")
     inf = kref.INF
-    errs = {"tile_min_neighbor[avq]": 0, "tile_min_neighbor[dense]": 0,
-            "bcsr_rev_search": 0}
+    errs = dict.fromkeys(KERNELS, 0)
 
     def hold(name, got, want, what):
         torch.cuda.synchronize()
@@ -335,6 +450,76 @@ def main(argv=None) -> int:
         if what == "1-D":
             hold("bcsr_rev_search", got,
                  kref.rev_search_ref(arcs3[0], rev3[0], a_r), "rev table")
+
+    # fused discharge: k in {1, 3, 8}, counters off and on, on three
+    # washington rows of different sizes (padded vertices and arcs) whose
+    # last is trivial (s == t), and on a hub of 3000 arcs; the states right
+    # after preflow (an all-relabel first cycle), after a global relabel,
+    # and an idle one (no excess)
+    def fused_cases(insts, what):
+        bg, meta_b, res0_b, triv = batched.pack_instances(insts)
+        pre = batched.batched_preflow(bg, meta_b, res0_b)
+        post = batched.batched_global_relabel(bg, meta_b, pre)[0]
+        idle = batched.BatchedPRState(post.res, post.h,
+                                      torch.zeros_like(post.e))
+        for name, st in (("preflow", pre), ("global_relabel", post),
+                         ("idle", idle)):
+            args = (bg.s, bg.t, bg.indptr, bg.heads, bg.rev, *st)
+            for k in (1, 3, 8):
+                for counters in (False, True):
+                    got = fused_discharge_batched(*args, n=meta_b.n, k=k,
+                                                  counters=counters)
+                    want = fused_discharge_batched_plain(
+                        *args, n=meta_b.n, k=k, counters=counters)
+                    if counters:
+                        got, want = got[:5] + got[5], want[:5] + want[5]
+                    hold("fused_discharge_batched", tuple(got), tuple(want),
+                         f"{what}, {name}, k={k}, counters={counters}")
+                    live, pushed = got[3].tolist(), got[4].tolist()
+                    require(all(x == 0 for x, tr in zip(live, triv) if tr),
+                            "a trivial lane lived")
+                    if name == "idle":
+                        require(live == [0] * len(live) and not any(pushed)
+                                and all(torch.equal(a, b) for a, b in
+                                        zip(got[:3], st)),
+                                "the idle state changed")
+                    if name == "preflow" and k == 1:
+                        require(not any(pushed) and all(
+                            x == 1 for x, tr in zip(live, triv) if not tr),
+                            "the first cycle after preflow pushed")
+
+    wash = []
+    for i, (r_, c_) in enumerate(((12, 12), (9, 14), (12, 12))):
+        g0, s0, t0_ = washington_rlg(r_, c_, seed=SEED + i)
+        wash.append((build_residual(g0, "bcsr"), s0, s0 if i == 2 else t0_))
+    fused_cases(wash, "B=3")
+    g0, _, _ = random_sparse(3500, 6000, seed=SEED)
+    spokes = np.arange(2, 3002)
+    hub_edges = np.concatenate([
+        g0.edges, [[0, 1]], np.stack([np.ones_like(spokes), spokes], 1),
+        np.stack([spokes, np.full_like(spokes, 3499)], 1)])
+    hub_cap = np.concatenate([g0.cap, [200], np.ones(6000, np.int64)])
+    hub = build_residual(Graph(3500, hub_edges, hub_cap), "bcsr")
+    require(int(np.diff(hub.indptr)[1]) >= 3000, "the hub is short")
+    fused_cases([(hub, 0, 3499)], "hub of 3000 arcs")
+    # more rows than blocks of 256 threads can be resident at once: the
+    # cooperative grid holds min(B, resident) rows and runs the rest in
+    # rounds (the plain version runs on the host's CPU, for speed)
+    props = torch.cuda.get_device_properties(dev)
+    most = (getattr(props, "max_threads_per_multi_processor", 2048) // 256
+            * props.multi_processor_count)
+    bg3, meta3, res03, _ = batched.pack_instances(wash)
+    st3 = batched.batched_global_relabel(
+        bg3, meta3, batched.batched_preflow(bg3, meta3, res03))[0]
+    reps = most // 3 + 1
+    many = tuple(x.repeat(reps, *([1] * (x.ndim - 1))) for x in
+                 (bg3.s, bg3.t, bg3.indptr, bg3.heads, bg3.rev, *st3))
+    got = fused_discharge_batched(*many, n=meta3.n, k=3, counters=True)
+    want = fused_discharge_batched_plain(*(x.cpu() for x in many),
+                                         n=meta3.n, k=3, counters=True)
+    hold("fused_discharge_batched", tuple(got[:5] + got[5]),
+         tuple(w.to(dev) for w in want[:5] + want[5]),
+         f"B={3 * reps} rows > {most} resident blocks")
     emit({"phase": "kernels_edge_cases", "ok": True, "max_abs_err": errs})
 
     # -- 4. the main path at full size --------------------------------------
@@ -349,12 +534,27 @@ def main(argv=None) -> int:
           f"{cols}, seed={SEED})", "n": r.n, "edges": graph.m,
           "arcs": r.num_arcs, "deg_max": r.deg_max, "gen_s": t_gen,
           "csr_s": t_csr})
-    # scipy's Dinic takes minutes at this size: it runs in a process of
-    # its own while the card solves; leaving the block terminates it
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
-        oracle = pool.apply_async(scipy_maxflow, (graph.n, graph.edges,
-                                                  graph.cap, s, t))
-        launches = main_path_and_modes(small, torch, problem, oracle)
+    t0 = time.perf_counter()
+    bgraphs = [washington_rlg(*bsize, seed=SEED + i) for i in range(BATCH)]
+    batch = [MaxflowProblem(*bg_) for bg_ in bgraphs]
+    for p_ in batch:
+        p_.residual("bcsr")
+    emit({"phase": "batch_graphs", "graph": f"washington_rlg({bsize[0]}, "
+          f"{bsize[1]}, seed={SEED}..{SEED + BATCH - 1})",
+          "n": [p_.residual("bcsr").n for p_ in batch],
+          "arcs": [p_.residual("bcsr").num_arcs for p_ in batch],
+          "gen_s": time.perf_counter() - t0})
+    # scipy's Dinic takes minutes at the main graph's size: it runs in a
+    # process of its own while the card solves, and a second process
+    # solves the batched instances; leaving the block terminates both
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        oracles = [pool.apply_async(scipy_maxflow, (graph.n, graph.edges,
+                                                    graph.cap, s, t))]
+        oracles += [pool.apply_async(scipy_maxflow, (g_.n, g_.edges, g_.cap,
+                                                     s_, t_))
+                    for g_, s_, t_ in bgraphs]
+        paths = main_path_and_modes(small, torch, problem, batch, oracles)
+    emit({"phase": "launches_by_path", **paths})
 
     # -- 6. no host sync inside an engine chunk -----------------------------
     g, meta, res0 = pr.to_device(r)
@@ -363,22 +563,59 @@ def main(argv=None) -> int:
     sweep, dist0 = globalrelabel.distance_sweep(g, meta, state.res, t,
                                                 minh_fn)
     fp_step, fp_cond, fp_carry = engine.fixpoint_loop(sweep, dist0, cap=r.n)
-    body, cond = pr.cycle_loop(g, meta, s, t, "vc_kernel_bsearch", cap=1024)
-    cyc_carry = (state, torch.zeros((), dtype=torch.int32, device=dev))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    loops = {mode: pr.cycle_loop(g, meta, s, t, mode, cap=1024)
+             for mode in ("vc_kernel_bsearch", "vc_fused")}
+    carries = dict.fromkeys(loops, (state, zero))
+    bbg, bmeta, bres0, _ = batched.pack_instances(
+        [(p_.residual("bcsr"), p_.s, p_.t) for p_ in batch])
+    bstate = batched.batched_global_relabel(
+        bbg, bmeta, batched.batched_preflow(bbg, bmeta, bres0))[0]
+    b_step, b_cond, b_carry = batched.batched_cycle_loop(
+        bbg, bmeta, bstate, "vc_fused", 1024)
+    # the fused kernel at the batched path's shapes: 8 rows of 65,538
+    # vertices, many blocks per row
+    bargs = (bbg.s, bbg.t, bbg.indptr, bbg.heads, bbg.rev)
+    for counters in (False, True):
+        got = fused_discharge_batched(*bargs, *bstate, n=bmeta.n,
+                                      k=K_DEFAULT, counters=counters)
+        want = fused_discharge_batched_plain(*bargs, *bstate, n=bmeta.n,
+                                             k=K_DEFAULT, counters=counters)
+        if counters:
+            got, want = got[:5] + got[5], want[:5] + want[5]
+        hold("fused_discharge_batched", tuple(got), tuple(want),
+             f"batched path, post-relabel, counters={counters}")
+    chunk = engine.DEFAULT_CHUNK
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         fp_carry = engine.run_chunk(fp_step, fp_carry, cond_fn=fp_cond,
-                                    chunk=engine.DEFAULT_CHUNK)
-        cyc_carry = engine.run_chunk(body, cyc_carry, cond_fn=cond,
-                                     chunk=engine.DEFAULT_CHUNK)
+                                    chunk=chunk)
+        for mode, (body, cond) in loops.items():
+            carries[mode] = engine.run_chunk(body, carries[mode],
+                                             cond_fn=cond, chunk=chunk)
+        b_carry = engine.run_chunk(b_step, b_carry, cond_fn=b_cond,
+                                   chunk=chunk)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    require(int(fp_carry[2]) == engine.DEFAULT_CHUNK
-            and int(cyc_carry[1]) == engine.DEFAULT_CHUNK,
+    require(int(fp_carry[2]) == chunk
+            and int(carries["vc_kernel_bsearch"][1]) == chunk
+            and int(carries["vc_fused"][1]) == chunk * K_DEFAULT
+            and int(b_carry[2]) == chunk * K_DEFAULT,
             "the sync-free chunks did not run their steps")
-    emit({"phase": "no_host_sync", "ok": True,
-          "chunk": engine.DEFAULT_CHUNK})
+    emit({"phase": "no_host_sync", "ok": True, "chunk": chunk,
+          "loops": ["sweep[kernel]", "cycle[vc_kernel_bsearch]",
+                    "cycle[vc_fused]", "batched cycle[vc_fused]"]})
+    # and mid-solve, at the state the batched chunk left
+    got = fused_discharge_batched(*bargs, *b_carry[0], n=bmeta.n,
+                                  k=K_DEFAULT, counters=True)
+    want = fused_discharge_batched_plain(*bargs, *b_carry[0], n=bmeta.n,
+                                         k=K_DEFAULT, counters=True)
+    hold("fused_discharge_batched", tuple(got[:5] + got[5]),
+         tuple(want[:5] + want[5]), "batched path, mid-solve")
+    emit({"phase": "fused_batched_shapes", "ok": True, "B": BATCH,
+          "n_pad": bmeta.n, "A_pad": int(bbg.heads.shape[1]),
+          "live_mid_solve": got[3].tolist()})
 
     # -- 3b. kernels at the main path's shapes, timed -----------------------
     # a mid-solve state: exact labels, then 256 cycles of the main mode
@@ -434,6 +671,46 @@ def main(argv=None) -> int:
             bytes=8 * n + 4 * n_push * (5 + steps), source="revsearch",
             shape={"P": n, "pushes": n_push, "steps": steps}),
     }
+    # the fused discharge's bytes come from this state's own cycles: the
+    # plain vc_step run K times gives each cycle's active vertices,
+    # frontier arcs and those of them with res > 0, held against the
+    # kernel's counters
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    fargs = (one * s, one * t, g.indptr[None], g.heads[None], g.rev[None],
+             state.res[None], state.h[None], state.e[None])
+    fcnt = [c[0].cpu().numpy().astype(np.int64) for c in
+            fused_discharge_batched(*fargs, n=n, k=K_DEFAULT,
+                                    counters=True)[5]]
+    f_act, f_push, f_fr, _ = fcnt
+    f_pos, st_c = [], state
+    for c in range(K_DEFAULT):
+        act_c = pr.active_mask(st_c, n, s, t)
+        on = act_c[g.tails.long()]
+        require(int(act_c.sum()) == f_act[c] and int(on.sum()) == f_fr[c],
+                "the fused counters disagree with the plain cycles")
+        f_pos.append(int((on & (st_c.res > 0)).sum()))
+        st_c = pr.vc_step(g, meta, st_c, s, t)
+    f_pos = np.array(f_pos, np.int64)
+    cases["fused_discharge_batched"] = dict(
+        kernel=lambda: fused_discharge_batched(*fargs, n=n, k=K_DEFAULT),
+        plain=lambda: fused_discharge_batched_plain(*fargs, n=n,
+                                                    k=K_DEFAULT),
+        # per cycle: e and h of every vertex; two indptr words of each
+        # active one; res of each frontier arc, head and the head's height
+        # of each with res > 0; each push's four updates and each
+        # relabel's height
+        library=None,
+        bytes=int(K_DEFAULT * 8 * n + 8 * f_act.sum() + 4 * f_fr.sum()
+                  + 8 * f_pos.sum() + 16 * f_push.sum()
+                  + 4 * (f_act - f_push).sum()),
+        source="discharge",
+        shape={"B": 1, "n": n, "A": a, "k": K_DEFAULT,
+               "active": f_act.tolist(), "pushes": f_push.tolist(),
+               "frontier_arcs": f_fr.tolist(),
+               "frontier_arcs_res_pos": f_pos.tolist(),
+               # what the first design moves besides: the snapshot copy,
+               # res/h/e read and written once a cycle
+               "snapshot_bytes": K_DEFAULT * 8 * (a + 2 * n)})
     rows_out = []
     for name, c in cases.items():
         hold(name, c["kernel"](), c["plain"](), "main-path shapes")
@@ -451,14 +728,15 @@ def main(argv=None) -> int:
         rows_out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{c['source']}.cu",
-            "replaces": REPLACES[c["source"]], "launches": launches[name],
+            "replaces": REPLACES[c["source"]],
+            "launches": paths["fused" if name == "fused_discharge_batched"
+                              else "main"][name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms})
 
     # -- 7. where a step's time goes: host enqueue, wall, device ---------
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
     loops = {}
-    for mode in ("vc_kernel_bsearch", "vc"):
+    for mode in ("vc_kernel_bsearch", "vc_fused", "vc"):
         body, cond = pr.cycle_loop(g, meta, s, t, mode, cap=2**30)
         loops[f"cycle[{mode}]"] = (body, cond, (state, zero))
     for name, fn in (("sweep[kernel]", minh_fn), ("sweep[plain]", None)):
@@ -478,9 +756,14 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0) / (10 * chunk)
         dev_step = device_ms(torch, run, REPS, 100_000_000) / chunk
-        emit({"phase": "step_timing", "loop": name,
+        # a vc_fused step is one launch of K cycles; the rest one cycle
+        per = K_DEFAULT if name == "cycle[vc_fused]" else 1
+        emit({"phase": "step_timing", "loop": name, "cycles_per_step": per,
               "host_ms_per_step": 1e3 * (t1 - t0) / (10 * chunk),
               "wall_ms_per_step": wall, "device_ms_per_step": dev_step,
+              "host_ms_per_cycle": 1e3 * (t1 - t0) / (10 * chunk * per),
+              "wall_ms_per_cycle": wall / per,
+              "device_ms_per_cycle": dev_step / per,
               "device_idle_share": max(0.0, 1 - dev_step / wall),
               "top_device_us_per_step": top_device_ops(torch, run, chunk)})
 

@@ -23,15 +23,18 @@ class SolverOptions:
         (the paper's workload-balanced vertex-centric, on plain PyTorch
         ops), the faithful CUDA variants ``vc_kernel`` (warp-per-vertex
         min search) and ``vc_kernel_bsearch`` (plus the BCSR
-        binary-search reverse lookup).  ``tc`` and ``vc_fused`` are
-        accepted names whose solve raises ``NotImplementedError`` until
-        they are ported.
+        binary-search reverse lookup), and ``vc_fused`` (K whole cycles
+        per launch of the fused discharge kernel).  ``tc`` is an
+        accepted name whose solve raises ``NotImplementedError`` until it
+        is ported.
     ``layout``
         Residual-graph layout, ``bcsr`` or ``rcsr`` (paper §3.2).
     ``backend``
-        ``single`` (one instance per solve).  ``batched`` and
-        ``distributed`` are accepted names whose solve raises
-        ``NotImplementedError`` until they are ported.
+        ``single`` (one instance per solve) or ``batched`` (instances
+        padded to one shape and advanced together, one kernel launch
+        per step for the whole batch; ``solve`` is a batch of one).
+        ``distributed`` is an accepted name whose solve raises
+        ``NotImplementedError`` until it is ported.
     ``global_relabel_cadence``
         Push-relabel cycles between global relabels.  ``None`` picks the
         heuristic ``max(32, min(1024, n))``.
@@ -52,8 +55,10 @@ class SolverOptions:
         raises when none is visible; ``"cpu"`` runs every kernel's plain
         PyTorch version.
     ``telemetry``
-        Device-side workload counters; not ported yet (the solve raises
-        ``NotImplementedError``).
+        Device-side workload counters (``repro_torch.obs.
+        solvercounters``): push/relabel totals in ``SolveStats``, plus
+        per-cycle active/frontier/maxdeg histories on the single
+        backend.
     """
 
     mode: str = "vc"

@@ -1,10 +1,12 @@
-"""Solve results (port of the JAX package's ``repro.api.solution`` for the
-single backend).  A ``Solution`` carries the value, the counters and the
-final solver state; the views that need phase 2 (flows, min cut,
-matching, warm starts) raise until phase 2 is ported."""
+"""Solve results (port of the JAX package's ``repro.api.solution``).  A
+``Solution`` carries the value, the counters and the final solver state;
+the views that need phase 2 (flows, min cut, matching, warm starts)
+raise until phase 2 is ported."""
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 from repro_torch.core.pushrelabel import PRState
 
@@ -15,15 +17,24 @@ _PHASE2 = ("needs phase 2 (preflow -> flow), which is not ported yet "
 
 @dataclasses.dataclass
 class SolveStats:
-    """Execution counters."""
+    """Execution counters, uniform across backends."""
 
     cycles: int = 0  # push-relabel iterations spent
     rounds: int = 0  # [cycles -> global relabel] rounds
     global_relabels: int = 0
-    gr_sweeps: int = 0  # Bellman-Ford sweeps across all global relabels
     backend: str = "single"
     mode: str = "vc"
     layout: str = "bcsr"
+    batch_size: int = 1  # instances in the call that solved this
+    # device-side workload counters (SolverOptions(telemetry=True) only;
+    # see repro_torch.obs.solvercounters for definitions)
+    pushes: int = 0
+    relabels: int = 0
+    gr_sweeps: int = 0  # Bellman-Ford sweeps across all global relabels
+    # per-cycle series, single backend only (np.int64, length == cycles)
+    active_history: np.ndarray | None = None
+    frontier_history: np.ndarray | None = None
+    maxdeg_history: np.ndarray | None = None
 
 
 class Solution:
@@ -31,7 +42,9 @@ class Solution:
 
     ``value`` is the max-flow value (== cut capacity for min-cut
     problems); ``state`` is the final ``PRState`` — a maximum *preflow*,
-    with stranded excess at deactivated vertices — on the solve's device.
+    with stranded excess at deactivated vertices — on the solve's device
+    (for a batched solve, the instance's unpadded slice of the batch's
+    state).
     """
 
     def __init__(self, problem, value: int, stats: SolveStats,

@@ -78,3 +78,62 @@ def global_relabel_impl(g, meta, state, s: int, t: int, minh_fn=None):
     new_state = pr.PRState(res=state.res, h=h, e=state.e)
     nact = pr.active_mask(new_state, n, s, t).sum(dtype=torch.int32)
     return new_state, nact, sweeps
+
+
+def batched_residual_distances_impl(g, meta, res, t, minh_fn=None):
+    """Batch-level form of :func:`residual_distances_impl`: ``g`` holds
+    stacked ``(B, n+1)``/``(B, A)`` rows, ``res`` is ``(B, A)`` and ``t``
+    is a ``(B,)`` tensor.  Each sweep step is ONE segmented min over the
+    whole batch: ``minh_fn=None`` runs ``scatter_reduce`` over the batch
+    as one graph of B disjoint rows (row ``b``'s vertex ``v`` is
+    ``b * n + v``), a kernel ``minh_fn`` runs a single
+    ``tile_min_neighbor`` launch with the batch on ``grid.y``.
+
+    The sweep loop runs until EVERY row reaches its fixpoint; rows that
+    converge earlier are fixpoints of the sweep (``min`` is idempotent),
+    so the result is bit for bit what per-instance loops produce.
+    Returns ``(dist (B, n), sweeps)``."""
+    from repro_torch.core import pushrelabel as pr
+
+    n = meta.n
+    bsz = res.shape[0]
+    t_col = t.long()[:, None]
+    dist0 = torch.full((bsz, n), INF, dtype=torch.int32,
+                       device=res.device).scatter_(1, t_col, 0)
+    flat_tails = None
+    if minh_fn is None:
+        voff = torch.arange(bsz, device=res.device)[:, None] * n
+        flat_tails = (g.tails.long() + voff).view(-1)
+        heads = g.heads.long()
+
+    def sweep(dist):
+        if minh_fn is None:
+            dh = torch.gather(dist, 1, heads)
+            key = torch.where((res > 0) & (dh < INF), dh + 1, INF)
+            cand = segment_min(key.view(-1), flat_tails, bsz * n).view(bsz, n)
+        else:
+            pseudo = pr.PRState(res=res,
+                                h=torch.clamp(dist + 1, max=INF), e=None)
+            cand, _ = minh_fn(g, meta, pseudo, None, None)
+        return torch.minimum(dist, cand).scatter_(1, t_col, 0)
+
+    return engine.run_to_fixpoint(sweep, dist0, cap=n)
+
+
+def batched_global_relabel_impl(g, meta, state, s, t, minh_fn=None):
+    """Batch-level global relabel over stacked rows: one distance-sweep
+    loop (:func:`batched_residual_distances_impl`) serves the whole
+    batch.  ``s``/``t`` are ``(B,)`` tensors; returns ``(new_state, nact
+    (B,), sweeps)`` bit for bit equal to :func:`global_relabel_impl` on
+    each row (``sweeps`` is the shared fixpoint's count — the max over
+    instances)."""
+    from repro_torch.core import batched
+    from repro_torch.core import pushrelabel as pr
+
+    n = meta.n
+    dist, sweeps = batched_residual_distances_impl(g, meta, state.res, t,
+                                                   minh_fn=minh_fn)
+    h = torch.where(dist < INF, dist, n).scatter_(1, s.long()[:, None], n)
+    new_state = pr.PRState(res=state.res, h=h, e=state.e)
+    act = batched.active_rows(h, state.e, n, s, t)
+    return new_state, act.sum(dim=1, dtype=torch.int32), sweeps

@@ -19,10 +19,12 @@ result is bit-for-bit the JAX package's.
 The kernel modes run the min search on the CUDA warp-per-vertex kernel
 (``repro_torch.kernels.segmin``) and, in ``vc_kernel_bsearch``, the
 reverse-arc lookup on the BCSR binary-search kernel
-(``repro_torch.kernels.revsearch``); the plain ``vc`` mode below is the
-reference semantics.  Nothing inside a cycle reads the device from the
-host: every shape is static and every scatter that the reference drops
-lands in a sentinel slot that is sliced off.
+(``repro_torch.kernels.revsearch``); ``vc_fused`` runs K whole cycles per
+launch of the fused discharge kernel (``repro_torch.kernels.discharge``).
+The plain ``vc`` mode below is the reference semantics.  Nothing inside
+a cycle reads the device from the host: every shape is static and every
+scatter that the reference drops lands in a sentinel slot that is sliced
+off.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from repro_torch.core.csr import ResidualCSR
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ref import INF
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.obs import solvercounters as sc
 
 _I32 = torch.int32
 
@@ -150,7 +153,13 @@ def _push_decision(h: torch.Tensor, u_c: torch.Tensor, q_valid: torch.Tensor,
 def _decide_apply(g: DeviceGraph, meta: GraphMeta, state: PRState,
                   u: torch.Tensor, q_valid: torch.Tensor,
                   minh: torch.Tensor, argarc: torch.Tensor,
-                  rev_fn: Callable | None = None) -> PRState:
+                  rev_fn: Callable | None = None,
+                  dead_end: int | None = None) -> PRState:
+    """Push or relabel every queue entry against the min search's
+    ``(minh, argarc)``.  ``dead_end`` is the height a vertex without a
+    residual arc is relabelled to, ``meta.n`` by default; the batched
+    core applies a whole batch as one graph of ``B * n_pad`` vertices and
+    keeps it at ``n_pad``."""
     n, A = meta.n, meta.num_arcs
     res, h, e = state
     u_c = torch.clamp(u, max=n - 1)
@@ -179,7 +188,8 @@ def _decide_apply(g: DeviceGraph, meta: GraphMeta, state: PRState,
                     torch.cat([-d, d]))
 
     do_relabel = q_valid & ~do_push
-    newh = torch.where(can, minh + 1, n)  # dead end -> deactivate
+    # dead end -> deactivate
+    newh = torch.where(can, minh + 1, n if dead_end is None else dead_end)
     # relabelled entries are distinct vertices; every other lane writes
     # the dropped slot n
     hbuf = torch.cat([h, h.new_zeros(1)])
@@ -203,15 +213,15 @@ def vc_step(g: DeviceGraph, meta: GraphMeta, state: PRState, s: int, t: int,
 
 
 #: modes whose hot loops run the CUDA kernels ('vc_fused' runs the whole
-#: discharge in one kernel and is not ported yet; the others route the min
-#: search / reverse lookup through the two kernels of this package)
+#: discharge in one kernel; the others route the min search / reverse
+#: lookup through the min-search and reverse-search kernels)
 KERNEL_MODES = ("vc_kernel", "vc_kernel_bsearch", "vc_fused")
 
 #: every step strategy of the JAX package, under the same names
 ALL_MODES = ("vc", "tc") + KERNEL_MODES
 
 #: the modes this package runs
-PORTED_MODES = ("vc", "vc_kernel", "vc_kernel_bsearch")
+PORTED_MODES = ("vc", "vc_kernel", "vc_kernel_bsearch", "vc_fused")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -221,11 +231,16 @@ def _not_ported(what: str) -> NotImplementedError:
 def _make_step(mode: str) -> Callable:
     """Step factory: 'vc' (flat frontier, beyond-paper), 'vc_kernel'
     (faithful warp-per-vertex min search), 'vc_kernel_bsearch' (faithful
-    BCSR: the min-search kernel + the binary-search reverse lookup)."""
+    BCSR: the min-search kernel + the binary-search reverse lookup).
+    'vc_fused' is not a per-cycle step: ``run_cycles`` drives it as K
+    cycles per launch (``repro_torch.kernels.discharge``)."""
     if mode == "vc":
         return vc_step
-    if mode in ("tc", "vc_fused"):
+    if mode == "tc":
         raise _not_ported(f"mode {mode!r}")
+    if mode == "vc_fused":
+        raise ValueError("mode 'vc_fused' is not a per-cycle step; "
+                         "run_cycles drives it K cycles per launch")
     if mode not in KERNEL_MODES:
         raise ValueError(f"unknown mode {mode!r}")
     from repro_torch.kernels import ops as kops
@@ -241,20 +256,89 @@ def _make_step(mode: str) -> Callable:
 # solver driver
 # ---------------------------------------------------------------------------
 
-def cycle_loop(g: DeviceGraph, meta: GraphMeta, s: int, t: int,
-               mode: str = "vc", cap: int = 256):
-    """The ``(step_fn, cond_fn)`` of the cycle loop over ``(state, cycle)``
-    carries: one ``mode`` step per cycle while a vertex is active and
-    fewer than ``cap`` cycles ran."""
+def cycles_per_step(mode: str, max_cycles: int) -> int:
+    """Cycles one engine step runs: K (``K_DEFAULT``, clamped to the
+    cycle budget) for the fused discharge, 1 for every other mode."""
+    if mode != "vc_fused":
+        return 1
+    from repro_torch.kernels import discharge
+
+    return max(1, min(discharge.K_DEFAULT, max_cycles))
+
+
+def _advance_fn(g: DeviceGraph, meta: GraphMeta, s: int, t: int, mode: str,
+                kk: int, telemetry: bool) -> Callable:
+    """``advance(state) -> (state, live cycles, counts)``: one engine
+    step of ``mode``.  ``counts`` (``telemetry`` only, else ``None``) are
+    the step's per-cycle ``(active, pushes, frontier, maxdeg)`` as
+    ``(kk,)`` int32 tensors."""
+    if mode == "vc_fused":
+        from repro_torch.kernels import discharge
+
+        # loop-invariant launch inputs, built once
+        s_b, t_b = (torch.full((1,), x, dtype=_I32, device=g.indptr.device)
+                    for x in (s, t))
+
+        def advance(state):
+            out = discharge.fused_discharge(g, meta, state, s_b, t_b, k=kk,
+                                            counters=telemetry)
+            return (PRState(*out[:3]), out[3],
+                    out[5] if telemetry else None)
+
+        return advance
     step = _make_step(mode)
 
+    def advance(state):
+        if not telemetry:
+            return step(g, meta, state, s, t), 1, None
+        nact, fr, md = sc.cycle_stats(g, meta, state, s, t)
+        new = step(g, meta, state, s, t)
+        pushes = nact - sc.count_relabels(state.h, new.h)
+        return new, 1, (nact[None], pushes[None], fr[None], md[None])
+
+    return advance
+
+
+def cycle_loop(g: DeviceGraph, meta: GraphMeta, s: int, t: int,
+               mode: str = "vc", cap: int = 256, telemetry: bool = False,
+               max_cycles: int | None = None):
+    """The ``(step_fn, cond_fn)`` of the cycle loop over ``(state, cycle)``
+    carries (``(state, cycle, CycleTelemetry)`` with ``telemetry``): one
+    engine step of ``mode`` — one cycle, or K for ``vc_fused`` — while a
+    vertex is active and fewer than ``cap`` cycles ran.  ``max_cycles``
+    (default ``cap``) sizes K and the telemetry histories, which hold
+    ``max_cycles`` slots, plus K for ``vc_fused``."""
+    max_cycles = cap if max_cycles is None else max_cycles
+    kk = cycles_per_step(mode, max_cycles)
+    advance = _advance_fn(g, meta, s, t, mode, kk, telemetry)
+    # the last history write may start at any cycle below the budget; like
+    # the reference's dynamic_update_slice, clamp it to the history
+    last = max_cycles + (kk if mode == "vc_fused" else 0) - kk
+    slots = torch.arange(kk, device=g.indptr.device)
+
     def cond(carry):
-        state, cycle = carry
+        state, cycle = carry[0], carry[1]
         return (cycle < cap) & torch.any(active_mask(state, meta.n, s, t))
 
     def body(carry):
-        state, cycle = carry
-        return step(g, meta, state, s, t), cycle + 1
+        state, cycle = carry[0], carry[1]
+        new, live, cnt = advance(state)
+        if not telemetry:
+            return new, cycle + live
+        tel = carry[2]
+        acts, pushs, frs, mds = cnt
+        a_sum = acts.sum(dtype=_I32)
+        p_sum = pushs.sum(dtype=_I32)
+        at = torch.clamp(cycle, max=last).long() + slots
+        tel = sc.CycleTelemetry(
+            pushes=tel.pushes + p_sum, relabels=tel.relabels + a_sum - p_sum,
+            active=tel.active + a_sum,
+            frontier=tel.frontier + frs.sum(dtype=_I32),
+            # out of place: the engine's gate keeps the old carry
+            active_hist=tel.active_hist.index_copy(0, at, acts),
+            frontier_hist=tel.frontier_hist.index_copy(0, at, frs),
+            maxdeg_hist=tel.maxdeg_hist.index_copy(0, at, mds))
+        return new, cycle + live, tel
 
     return body, cond
 
@@ -265,21 +349,41 @@ def run_cycles(g: DeviceGraph, meta: GraphMeta, state: PRState, s: int, t: int,
                chunk: int | None = None):
     """Paper Alg. 1 step 1: up to ``max_cycles`` push-relabel iterations with
     the AVQ-empty early exit (paper §3.3), run through the sweep engine in
-    chunks of ``chunk`` cycles (default ``engine.DEFAULT_CHUNK``) with one
+    chunks of ``chunk`` steps (default ``engine.DEFAULT_CHUNK``) with one
     host read per chunk.
 
     ``budget`` tightens the cycle cap below ``max_cycles``: the loop
     executes exactly ``min(max_cycles, budget)`` cycles unless it converges
     first.  Returns ``(state, cycles)``, ``cycles`` a 0-d int32 tensor.
+
+    ``mode='vc_fused'`` runs each engine step as ONE launch of the fused
+    discharge kernel executing up to ``K_DEFAULT`` whole cycles; the
+    kernel's live-cycle count keeps ``cycles`` the unfused loop's (the
+    budget may overshoot by at most K-1 when it is not a multiple of K).
+
+    ``telemetry=True`` carries the workload counters of
+    ``repro_torch.obs.solvercounters`` in the loop and returns a third
+    element, a ``CycleTelemetry`` of 0-d push/relabel/active/frontier
+    totals and per-cycle active/frontier/maxdeg histories, all on the
+    device.
     """
-    if telemetry:
-        raise _not_ported("telemetry=True")
     cap = max_cycles if budget is None else min(max_cycles, int(budget))
-    body, cond = cycle_loop(g, meta, s, t, mode, cap)
-    cycles0 = torch.zeros((), dtype=_I32, device=state.res.device)
-    return engine.run_bulk_loop(body, (state, cycles0), cond_fn=cond,
+    kk = cycles_per_step(mode, max_cycles)
+    body, cond = cycle_loop(g, meta, s, t, mode, cap, telemetry=telemetry,
+                            max_cycles=max_cycles)
+    dev = state.res.device
+    carry = (state, torch.zeros((), dtype=_I32, device=dev))
+    if telemetry:
+        hist = max_cycles + (kk if mode == "vc_fused" else 0)
+        carry += (sc.telemetry_init(hist=hist, device=dev),)
+    steps_bound = -(-max_cycles // kk)  # K cycles per engine step
+    return engine.run_bulk_loop(body, carry, cond_fn=cond,
                                 chunk=engine.normalize_chunk(chunk,
-                                                             max_cycles))
+                                                             steps_bound))
+
+
+def _empty_hist() -> np.ndarray:
+    return np.zeros(0, np.int64)
 
 
 @dataclasses.dataclass
@@ -289,6 +393,19 @@ class SolveStats:
     cycles: int = 0
     global_relabels: int = 0
     gr_sweeps: int = 0  # Bellman-Ford sweep total across global relabels
+    # device-counter workload totals (telemetry solves; 0 otherwise) —
+    # int32 per call, accumulated here in Python ints
+    pushes: int = 0
+    relabels: int = 0
+    # per-cycle device-counter series (telemetry solves only; empty
+    # otherwise): active vertices, frontier arcs, max active degree —
+    # one entry per push-relabel cycle, read once per round
+    active_history: np.ndarray = dataclasses.field(
+        default_factory=_empty_hist)
+    frontier_history: np.ndarray = dataclasses.field(
+        default_factory=_empty_hist)
+    maxdeg_history: np.ndarray = dataclasses.field(
+        default_factory=_empty_hist)
     state: PRState | None = None  # final solver state (residual/heights/excess)
 
 
@@ -299,21 +416,25 @@ def solve_impl(r: ResidualCSR, s: int, t: int, mode: str = "vc",
                scan_chunk: int | None = None) -> SolveStats:
     """Full max-flow solve: preflow -> [cycles -> global relabel]* -> e(t).
 
-    ``mode``: 'vc' (paper's WBPR on plain PyTorch ops) or one of the ported
+    ``mode``: 'vc' (paper's WBPR on plain PyTorch ops) or one of the
     ``KERNEL_MODES`` — kernel modes also route the global relabel's
-    Bellman-Ford sweeps through the min-search kernel.  ``device``: ``None``
-    is the card; ``"cpu"`` runs the kernels' plain versions.
+    Bellman-Ford sweeps through the min-search kernel.  ``device``:
+    ``None`` is the card; ``"cpu"`` runs the kernels' plain versions.
 
     ``max_cycles`` (optional) is an exact total cycle budget: the remaining
     allowance caps every ``run_cycles`` call, so the solve executes exactly
-    ``max_cycles`` cycles before raising ``BudgetExhausted``.
+    ``max_cycles`` cycles before raising ``BudgetExhausted`` (``vc_fused``
+    may overshoot by < K, its launch granularity).
     ``scan_chunk`` sets the engine's steps per chunk.
+
+    ``instrument=True`` enables the device-side telemetry counters
+    (``repro_torch.obs.solvercounters``): the returned stats carry exact
+    push/relabel totals and per-cycle active/frontier/maxdeg histories,
+    computed inside the loop and read once per round.
 
     This is the single-instance engine behind the facade; call it through
     ``repro_torch.api.Solver``.
     """
-    if instrument:
-        raise _not_ported("telemetry (instrument=True)")
     if mode not in PORTED_MODES:
         _make_step(mode)  # raises: not ported, or unknown
     g, meta, res0 = to_device(r, device)
@@ -329,12 +450,22 @@ def solve_impl(r: ResidualCSR, s: int, t: int, mode: str = "vc",
     state, _, sweeps = globalrelabel.global_relabel_impl(g, meta, state, s, t,
                                                          minh_fn=gr_minh)
     stats = SolveStats(maxflow=0, gr_sweeps=int(sweeps))
+    hists: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
     remaining = max_cycles  # None = unbounded; else exact total allowance
     for _ in range(max_rounds):
-        state, cycles = run_cycles(g, meta, state, s, t, mode=mode,
-                                   max_cycles=chunk, budget=remaining,
-                                   chunk=scan_chunk)
+        out = run_cycles(g, meta, state, s, t, mode=mode, max_cycles=chunk,
+                         telemetry=instrument, budget=remaining,
+                         chunk=scan_chunk)
+        state, cycles = out[0], out[1]
         c = int(cycles)
+        if instrument:
+            tel = out[2]
+            stats.pushes += int(tel.pushes)
+            stats.relabels += int(tel.relabels)
+            hists.append(tuple(
+                h[:c].cpu().numpy().astype(np.int64)
+                for h in (tel.active_hist, tel.frontier_hist,
+                          tel.maxdeg_hist)))
         stats.cycles += c
         stats.rounds += 1
         if remaining is not None:
@@ -357,6 +488,9 @@ def solve_impl(r: ResidualCSR, s: int, t: int, mode: str = "vc",
                 limit=max_cycles, partial=True)
     else:
         raise RuntimeError("push-relabel did not converge within max_rounds")
+    if hists:
+        stats.active_history, stats.frontier_history, stats.maxdeg_history \
+            = (np.concatenate(col) for col in zip(*hists))
     stats.maxflow = int(state.e[t])
     stats.state = state
     return stats

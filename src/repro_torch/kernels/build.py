@@ -52,6 +52,9 @@ SIGNATURES = {
     # arcs, indptr, heads, tails, out, batch, p, n, a, steps, stream
     "revsearch": ("bcsr_rev_search_launch", (_P, _P, _P, _P, _P, _I, _I, _I,
                                              _I, _I, _P)),
+    # s, t, indptr, heads, rev, res/h/e in, res/h/e out, live, pushed,
+    # cnt, res/h/e snapshots, batch, n, a, k, stream
+    "discharge": ("fused_discharge_launch", (_P,) * 17 + (_I,) * 4 + (_P,)),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the two CUDA kernels (port of the JAX
-package's ``repro.kernels.ref``).
+"""Plain PyTorch versions of the min-search and reverse-search CUDA
+kernels (port of the JAX package's ``repro.kernels.ref``).
 
 The kernel wrappers run these for tensors on the CPU, and
 ``chip_smoke.py`` holds each kernel against them on the card.  Each
@@ -49,14 +49,23 @@ def min_neighbor_ref(avq: torch.Tensor, indptr: torch.Tensor,
     package's version, the frontier holds at most ``A`` arcs: the entries
     below ``n`` must be distinct, as an AVQ's are (the kernel has no such
     limit)."""
+    return min_neighbor_segments(avq, indptr[:-1], indptr[1:], key, n=n)
+
+
+def min_neighbor_segments(avq: torch.Tensor, starts: torch.Tensor,
+                          ends: torch.Tensor, key: torch.Tensor, *, n: int):
+    """:func:`min_neighbor_ref` over segments ``starts[u]:ends[u]`` that
+    need not tile the arc array — the batched core's B disjoint rows seen
+    as one graph, where row ``b``'s arcs start at ``b * A_pad``."""
     a = key.shape[0]
     q = avq.shape[0]
     dev = key.device
     q_valid = avq < n
     avq_c = torch.clamp(avq, max=n - 1)
-    deg = torch.where(q_valid, indptr[avq_c + 1] - indptr[avq_c], 0)
+    lo = starts[avq_c]
+    deg = torch.where(q_valid, ends[avq_c] - lo, 0)
     offs = torch.cumsum(deg, 0, dtype=_I32)
-    starts = offs - deg
+    first = offs - deg
     total = offs[-1:]
     pos = torch.arange(a, dtype=_I32, device=dev)
     row = frontier_rows(deg, a)
@@ -64,7 +73,7 @@ def min_neighbor_ref(avq: torch.Tensor, indptr: torch.Tensor,
     # past the frontier each position feeds (INF, A) to a row of its own:
     # no row's result changes, and no single row's atomic min is contended
     row = torch.where(fvalid, row, pos % q)
-    arc = torch.clamp(indptr[avq_c[row]] + (pos - starts[row]), 0, a - 1)
+    arc = torch.clamp(lo[row] + (pos - first[row]), 0, a - 1)
     k = torch.where(fvalid, key[arc], INF)
     minh = segment_min(k, row, q)
     cand = torch.where(fvalid & (k == minh[row]) & (k < INF), arc, a)

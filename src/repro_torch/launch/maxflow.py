@@ -3,6 +3,7 @@
 
 ``python -m repro_torch.launch.maxflow --generator washington --n 65536``
 ``python -m repro_torch.launch.maxflow --smoke --device cpu``
+``python -m repro_torch.launch.maxflow --backend batched --mode vc_fused --device cpu --smoke``
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=2000)
     ap.add_argument("--layout", default="bcsr", choices=["rcsr", "bcsr"])
     ap.add_argument("--mode", default="vc", choices=list(PORTED_MODES))
+    ap.add_argument("--backend", default="single",
+                    choices=["single", "batched"])
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
     ap.add_argument("--cycle-chunk", type=int, default=None,
@@ -53,14 +56,16 @@ def main(argv=None):
         g, s, t = read_dimacs(args.dimacs_file)
 
     solver = Solver(SolverOptions(
-        mode=args.mode, layout=args.layout, device=args.device,
+        mode=args.mode, layout=args.layout, backend=args.backend,
+        device=args.device,
         global_relabel_cadence=args.cycle_chunk))
     problem = MaxflowProblem(g, s, t)
     t0 = time.perf_counter()
     sol = solver.solve(problem)
     dt = time.perf_counter() - t0
     print(f"V={g.n} E={g.m} layout={args.layout} mode={args.mode} "
-          f"device={sol.state.res.device} maxflow={sol.value} "
+          f"backend={args.backend} device={sol.state.res.device} "
+          f"maxflow={sol.value} "
           f"cycles={sol.stats.cycles} "
           f"global_relabels={sol.stats.global_relabels} time={dt:.3f}s")
     if args.verify:

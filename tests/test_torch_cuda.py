@@ -11,8 +11,11 @@ import pytest
 import torch
 
 from repro_torch.api import MaxflowProblem, Solver
+from repro_torch.core import batched as tb
 from repro_torch.core.csr import Graph, build_residual
+from repro_torch.core.ref_maxflow import dinic_maxflow
 from repro_torch.graphs.generators import washington_rlg
+from repro_torch.kernels import discharge as tdis
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.revsearch import bcsr_rev_search, search_steps
 from repro_torch.kernels.segmin import (tile_min_neighbor,
@@ -119,3 +122,110 @@ def test_kernel_mode_solve_matches_cpu(cuda, mode):
     for f in ("res", "h", "e"):
         assert torch.equal(getattr(on_card.state, f).cpu(),
                            getattr(on_cpu.state, f)), f
+
+
+def _fused_batch(dev):
+    """Three washington rows of different sizes, the last one trivial,
+    packed: the state right after preflow (an all-relabel first cycle)
+    and after the first global relabel."""
+    insts = []
+    for i, (rows, cols) in enumerate(((12, 12), (9, 14), (12, 12))):
+        g, s, t = washington_rlg(rows, cols, seed=20 + i)
+        insts.append((build_residual(g, "bcsr"), s, s if i == 2 else t))
+    bg, meta, res0, _ = tb.pack_instances(insts, device=dev)
+    pre = tb.batched_preflow(bg, meta, res0)
+    return bg, meta, (pre, tb.batched_global_relabel(bg, meta, pre)[0])
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("counters", [False, True])
+def test_fused_discharge_kernel_matches_plain(cuda, k, counters):
+    """B = 3 rows with padded and trivial lanes, after preflow (an
+    all-relabel first cycle) and after a global relabel."""
+    bg, meta, states = _fused_batch(cuda)
+    for st in states:
+        args = (bg.s, bg.t, bg.indptr, bg.heads, bg.rev, *st)
+        before = tdis.fused_discharge_batched.launches
+        got = tdis.fused_discharge_batched(*args, n=meta.n, k=k,
+                                           counters=counters)
+        assert tdis.fused_discharge_batched.launches == before + 1
+        want = tdis.fused_discharge_batched_plain(*args, n=meta.n, k=k,
+                                                  counters=counters)
+        if counters:
+            got, want = got[:5] + got[5], want[:5] + want[5]
+        _same(tuple(got), tuple(want))
+        torch.cuda.synchronize()
+        assert int(got[3][2]) == 0  # the trivial lane never lives
+
+
+def test_fused_discharge_kernel_idle_state(cuda):
+    bg, meta, (state, _) = _fused_batch(cuda)
+    state = tb.BatchedPRState(state.res, state.h, torch.zeros_like(state.e))
+    res, h, e, live, pushed = tdis.fused_discharge_batched(
+        bg.s, bg.t, bg.indptr, bg.heads, bg.rev, *state, n=meta.n, k=8)
+    torch.cuda.synchronize()
+    assert int(live.sum()) == 0 and int(pushed.sum()) == 0
+    _same((res, h, e), tuple(state))
+
+
+def _most_resident_blocks(dev) -> int:
+    """Blocks of 256 threads the card can hold resident at once."""
+    props = torch.cuda.get_device_properties(dev)
+    return (getattr(props, "max_threads_per_multi_processor", 2048) // 256
+            * props.multi_processor_count)
+
+
+def test_fused_discharge_kernel_more_rows_than_resident_blocks(cuda):
+    """A batch with more rows than resident blocks runs its rows in rounds
+    of one cooperative launch, equal to the plain version (run on the CPU
+    for speed)."""
+    bg, meta, (_, st) = _fused_batch(cuda)
+    reps = _most_resident_blocks(cuda) // 3 + 1
+    many = tuple(x.repeat(reps, *([1] * (x.ndim - 1))) for x in
+                 (bg.s, bg.t, bg.indptr, bg.heads, bg.rev, *st))
+    got = tdis.fused_discharge_batched(*many, n=meta.n, k=3, counters=True)
+    want = tdis.fused_discharge_batched_plain(*(x.cpu() for x in many),
+                                              n=meta.n, k=3, counters=True)
+    torch.cuda.synchronize()
+    for g, w in zip((*got[:5], *got[5]), (*want[:5], *want[5])):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_fused_solve_many_more_rows_than_resident_blocks(cuda):
+    """``solve_many`` in ``vc_fused`` on a batch larger than the card's
+    resident blocks: every value equals the batched ``vc`` solve's and
+    the host's Dinic."""
+    probs = [MaxflowProblem(*washington_rlg(3, 3, seed=s))
+             for s in range(_most_resident_blocks(cuda) + 8)]
+    fused = Solver(backend="batched", mode="vc_fused").solve_many(probs)
+    plain = Solver(backend="batched", mode="vc").solve_many(probs)
+    want = [dinic_maxflow(p.graph, p.s, p.t) for p in probs]
+    assert [x.value for x in fused] == [x.value for x in plain] == want
+
+
+@pytest.mark.parametrize("backend", ["single", "batched"])
+def test_fused_solve_matches_cpu(cuda, backend):
+    """``vc_fused`` on the card, with telemetry, == on the CPU the plain
+    ``vc`` solve (single: a cadence of 64 is a multiple of K = 8) or the
+    batched ``vc_fused`` solve through the kernel's plain version
+    (batched: its pushed-flag early exit looks at whole launches, so it
+    may run up to K-1 cycles more than one-cycle modes)."""
+    probs = [MaxflowProblem(*washington_rlg(16, 16, seed=s)) for s in (3, 4)]
+
+    def run(mode, device):
+        solver = Solver(mode=mode, backend=backend, device=device,
+                        global_relabel_cadence=64, telemetry=True)
+        if backend == "batched":
+            return solver.solve_many(probs)
+        return [solver.solve(p) for p in probs]
+
+    on_card = run("vc_fused", "cuda")
+    on_cpu = run("vc" if backend == "single" else "vc_fused", "cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert a.value == b.value
+        for f in ("cycles", "rounds", "global_relabels", "gr_sweeps",
+                  "pushes", "relabels"):
+            assert getattr(a.stats, f) == getattr(b.stats, f), f
+        for f in ("res", "h", "e"):
+            assert torch.equal(getattr(a.state, f).cpu(),
+                               getattr(b.state, f)), f

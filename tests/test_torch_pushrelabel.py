@@ -127,15 +127,21 @@ def test_missing_reverse_arc_is_dropped(seed):
 
 
 def test_modes_not_ported_raise():
-    for mode in ("tc", "vc_fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpr._make_step(mode)
+    """``tc`` is not ported; ``vc_fused`` is not a per-cycle step (the
+    reference's ``_make_step`` refuses it too) but runs in
+    ``run_cycles``."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpr._make_step("tc")
+    with pytest.raises(ValueError, match="per-cycle"):
+        tpr._make_step("vc_fused")
     with pytest.raises(ValueError, match="unknown mode"):
         tpr._make_step("nope")
     _, (rt, gt, mt, res0t) = _pair(0)
     state = tpr.preflow(gt, mt, res0t, 0)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        tpr.run_cycles(gt, mt, state, 0, mt.n - 1, telemetry=True)
+    for telemetry in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpr.run_cycles(gt, mt, state, 0, mt.n - 1, mode="tc",
+                           telemetry=telemetry)
 
 
 @pytest.mark.parametrize("chunk", [1, 3, 4, 7])
@@ -176,3 +182,53 @@ def test_fill_at_and_active_mask():
                      e=torch.tensor([3, 2, 0, 4], dtype=torch.int32))
     assert tpr.active_mask(st, 4, 0, 3).tolist() == [False, True, False,
                                                      False]
+
+
+@pytest.mark.parametrize("budget", [1, 5, 8, 13])
+def test_fused_run_cycles_matches_jax_fused_driver(budget, monkeypatch):
+    """``run_cycles(mode="vc_fused")`` == the JAX ``vc_fused`` driver with
+    its kernel emulated: state, cycle count (a budget that is no multiple
+    of K overshoots by < K in both) and telemetry."""
+    from tests.test_torch_discharge import jax_kernels_emulated
+
+    (rj, gj, mj, res0j), (rt, gt, mt, res0t) = _pair(1)
+    s, t = 0, mj.n - 1
+    with jax_kernels_emulated(monkeypatch):
+        jstate, jc, jtel = jpr.run_cycles(
+            gj, mj, jpr.preflow(gj, mj, res0j, s), s, t, mode="vc_fused",
+            max_cycles=12, budget=budget, telemetry=True)
+    tstate, tc, ttel = tpr.run_cycles(
+        gt, mt, tpr.preflow(gt, mt, res0t, s), s, t, mode="vc_fused",
+        max_cycles=12, budget=budget, telemetry=True)
+    assert int(tc) == int(jc) < min(12, budget) + 8
+    _same_state(jstate, tstate)
+    for f in jtel._fields:
+        np.testing.assert_array_equal(getattr(ttel, f).numpy(),
+                                      np.asarray(getattr(jtel, f)),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+def test_fused_solve_matches_jax_fused_solve(seed, monkeypatch):
+    """The whole ``vc_fused`` solve == the JAX ``vc_fused`` solve with its
+    kernels emulated, at a cadence of 12 (launches straddle the cap) and
+    at 16 (a multiple of K, where it also equals the plain ``vc``
+    solve)."""
+    from tests.test_torch_discharge import jax_kernels_emulated
+
+    (rj, *_), (rt, *_) = _pair(seed)
+    s, t = 0, rj.n - 1
+    for cadence in (12, 16):
+        with jax_kernels_emulated(monkeypatch):
+            want = jpr.solve_impl(rj, s, t, mode="vc_fused",
+                                  cycle_chunk=cadence)
+        got = tpr.solve_impl(rt, s, t, mode="vc_fused", cycle_chunk=cadence,
+                             device="cpu")
+        for f in ("maxflow", "cycles", "rounds", "global_relabels",
+                  "gr_sweeps"):
+            assert getattr(got, f) == getattr(want, f), f
+        _same_state(want.state, got.state)
+    plain = tpr.solve_impl(rt, s, t, mode="vc", cycle_chunk=16, device="cpu")
+    assert (plain.cycles, plain.gr_sweeps) == (got.cycles, got.gr_sweeps)
+    for f in ("res", "h", "e"):
+        assert torch.equal(getattr(plain.state, f), getattr(got.state, f))

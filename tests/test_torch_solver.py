@@ -108,18 +108,22 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_not_ported_yet_raises():
+    """What stays unported raises, naming its ROADMAP entry: ``tc`` (on
+    both backends), ``distributed``, and the views that need phase 2 (on
+    single and batched solutions)."""
     _, gt, s, t = _instance("genrmf")
     p = MaxflowProblem(gt, s, t)
-    for kw in ({"mode": "tc"}, {"mode": "vc_fused"}, {"telemetry": True},
-               {"backend": "batched"}, {"backend": "distributed"}):
+    for kw in ({"mode": "tc"}, {"mode": "tc", "backend": "batched"},
+               {"backend": "distributed"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Solver(device="cpu", **kw).solve(p)
-    sol = Solver(device="cpu").solve(p)
-    for view in (sol.flows, sol.min_cut, sol.matching):
+    for backend in ("single", "batched"):
+        sol = Solver(device="cpu", backend=backend).solve(p)
+        for view in (sol.flows, sol.min_cut, sol.matching):
+            with pytest.raises(NotImplementedError, match="phase 2"):
+                view()
         with pytest.raises(NotImplementedError, match="phase 2"):
-            view()
-    with pytest.raises(NotImplementedError, match="phase 2"):
-        sol.warm_start
+            sol.warm_start
     with pytest.raises(ValueError, match="unknown mode"):
         SolverOptions(mode="fast", device="cpu")
 
@@ -132,9 +136,17 @@ def test_int32_narrowing_is_checked():
             tgen.Graph(g.n, g.edges, g.cap), 0, 2))
 
 
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", MODES + ("vc_fused",))
 def test_cli_smoke_verifies(mode, capsys):
     tlaunch.main(["--smoke", "--device", "cpu", "--verify", "--mode", mode,
                   "--generator", "grid"])
     out = capsys.readouterr().out
     assert "SMOKE PASS" in out and f"mode={mode}" in out
+
+
+@pytest.mark.parametrize("mode", MODES + ("vc_fused",))
+def test_cli_batched_smoke_verifies(mode, capsys):
+    tlaunch.main(["--smoke", "--device", "cpu", "--verify", "--mode", mode,
+                  "--generator", "grid", "--backend", "batched"])
+    out = capsys.readouterr().out
+    assert "SMOKE PASS" in out and "backend=batched" in out
