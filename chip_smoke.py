@@ -28,8 +28,14 @@ and on more rows than the card holds resident blocks.  It checks that one
 engine chunk of cycles (``vc_kernel_bsearch`` and ``vc_fused``, single and
 batched) and of global-relabel sweeps never synchronises with the host,
 and times every kernel beside its plain version, a PyTorch yardstick call
-where one exists and its memory bound, and each step's host, wall and
-device time.
+where one exists and its memory bound, the min search's hook with its key
+built by eager ops against the entry that gathers the key itself
+(``hook_timing``), and each step's host, wall and device time.  The min
+search has two entries into one CUDA source, ``tile_min_neighbor`` (key
+in, the TPU kernel's function, which no path launches: it is timed against
+``scatter_reduce`` and is the gather entry's oracle) and
+``tile_min_neighbor_gather`` (the solver's); each is held and timed in
+both forms, and each path must leave the key-in entry's count at 0.
 
 Prints one JSON line per phase, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -71,9 +77,18 @@ SIZES = {False: ((1024, 1024), (256, 256), (256, 256)),
 BATCH = 8
 #: the batched path's modes
 BATCH_MODES = ("vc_fused", "vc_kernel_bsearch", "vc")
-#: the kernels' launch counters, by the name the ``kernels`` line uses
+#: the kernels' launch counters, by the name the ``kernels`` line uses:
+#: the min search's two forms by the key-in entry, the same by the entry
+#: that gathers its key itself, the reverse search, the discharge
 KERNELS = ("tile_min_neighbor[avq]", "tile_min_neighbor[dense]",
+           "tile_min_neighbor_gather[avq]", "tile_min_neighbor_gather[dense]",
            "bcsr_rev_search", "fused_discharge_batched")
+#: the kernels each kernel-mode path must launch
+MAIN_KERNELS = KERNELS[2:5]
+FUSED_KERNELS = ("fused_discharge_batched", "tile_min_neighbor_gather[dense]")
+#: the key-in entry, which no path may launch (the solver's hook builds
+#: no key array)
+KEY_IN = KERNELS[:2]
 
 
 def emit(obj) -> None:
@@ -157,9 +172,11 @@ def reset_counts() -> None:
     """Every kernel wrapper's launch counter to 0."""
     from repro_torch.kernels.discharge import fused_discharge_batched
     from repro_torch.kernels.revsearch import bcsr_rev_search
-    from repro_torch.kernels.segmin import tile_min_neighbor
+    from repro_torch.kernels.segmin import (tile_min_neighbor,
+                                            tile_min_neighbor_gather)
 
-    tile_min_neighbor.launches = tile_min_neighbor.dense_launches = 0
+    for fn in (tile_min_neighbor, tile_min_neighbor_gather):
+        fn.launches = fn.dense_launches = 0
     bcsr_rev_search.launches = fused_discharge_batched.launches = 0
 
 
@@ -167,18 +184,21 @@ def launch_counts() -> dict:
     """The kernels' launch counters, by the names of ``KERNELS``."""
     from repro_torch.kernels.discharge import fused_discharge_batched
     from repro_torch.kernels.revsearch import bcsr_rev_search
-    from repro_torch.kernels.segmin import tile_min_neighbor
+    from repro_torch.kernels.segmin import (tile_min_neighbor,
+                                            tile_min_neighbor_gather)
 
+    seg, gat = tile_min_neighbor, tile_min_neighbor_gather
     return dict(zip(KERNELS, (
-        tile_min_neighbor.launches - tile_min_neighbor.dense_launches,
-        tile_min_neighbor.dense_launches, bcsr_rev_search.launches,
-        fused_discharge_batched.launches)))
+        seg.launches - seg.dense_launches, seg.dense_launches,
+        gat.launches - gat.dense_launches, gat.dense_launches,
+        bcsr_rev_search.launches, fused_discharge_batched.launches)))
 
 
 def driven(torch, fn, expect=()):
     """Run one path, ``fn()``, with the launch counts set to 0 just before
-    it and read just after; fail if a kernel of ``expect`` never launched.
-    Returns ``(result, wall seconds, counts)``."""
+    it and read just after; fail if a kernel of ``expect`` never launched
+    or the key-in min search launched at all.  Returns ``(result, wall
+    seconds, counts)``."""
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -188,6 +208,8 @@ def driven(torch, fn, expect=()):
     counts = launch_counts()
     for name in expect:
         require(counts[name] > 0, f"{name} never launched on this path")
+    for name in KEY_IN:
+        require(counts[name] == 0, f"{name} launched on a path")
     return out, wall, counts
 
 
@@ -218,7 +240,7 @@ def main_path_and_modes(small, torch, problem, batch, oracles):
         return driven(torch, lambda: Solver(SolverOptions(
             mode=mode, layout="bcsr")).solve(prob), expect)
 
-    main, wall, launches = solve("vc_kernel_bsearch", problem, KERNELS[:3])
+    main, wall, launches = solve("vc_kernel_bsearch", problem, MAIN_KERNELS)
     st = main.stats
     emit({"phase": "main_path", "mode": "vc_kernel_bsearch", "wall_s": wall,
           "value": main.value, "cycles": st.cycles, "rounds": st.rounds,
@@ -242,9 +264,8 @@ def main_path_and_modes(small, torch, problem, batch, oracles):
           "small_value": k_small.value, "small_cycles": k_small.stats.cycles,
           "small_vc_kernel_wall_s": wall_k, "small_vc_wall_s": wall_v})
 
-    fused, wall_f, paths["fused"] = solve(
-        "vc_fused", problem, ("fused_discharge_batched",
-                              "tile_min_neighbor[dense]"))
+    fused, wall_f, paths["fused"] = solve("vc_fused", problem,
+                                          FUSED_KERNELS)
     same_solution(torch, fused, plain, "vc_fused vs vc")
     emit({"phase": "fused_path", "mode": "vc_fused", "wall_s": wall_f,
           "value": fused.value, "cycles": fused.stats.cycles,
@@ -253,9 +274,8 @@ def main_path_and_modes(small, torch, problem, batch, oracles):
 
     # -- 5b. the batched path -----------------------------------------------
     sols = {}
-    expect = {"vc_fused": ("fused_discharge_batched",
-                           "tile_min_neighbor[dense]"),
-              "vc_kernel_bsearch": KERNELS[:3], "vc": ()}
+    expect = {"vc_fused": FUSED_KERNELS, "vc_kernel_bsearch": MAIN_KERNELS,
+              "vc": ()}
     for mode in BATCH_MODES:
         sols[mode], wall_b, paths[f"batched[{mode}]"] = driven(
             torch, lambda mode=mode: Solver(
@@ -366,6 +386,8 @@ def main(argv=None) -> int:
                                                fused_discharge_batched_plain)
     from repro_torch.kernels.revsearch import bcsr_rev_search, search_steps
     from repro_torch.kernels.segmin import (tile_min_neighbor,
+                                            tile_min_neighbor_gather,
+                                            tile_min_neighbor_gather_plain,
                                             tile_min_neighbor_plain)
 
     dev = torch.device("cuda")
@@ -415,6 +437,58 @@ def main(argv=None) -> int:
          tile_min_neighbor(None, indptr, key[1], n=n_e),
          tile_min_neighbor(torch.arange(n_e, dtype=torch.int32, device=dev),
                            indptr, key[1], n=n_e), "arange(n) avq")
+    # the tiled dense form and the ballot AVQ form, both entries: rows of
+    # 600 vertices (not a multiple of the dense tile of 256) with a hub of
+    # 3000 arcs, a tile of empty segments only (vertices 256..511), empty
+    # and all-INF segments, heads out of range inside segments and on each
+    # row's padded arcs, INF heights; queues of Q = 40, n and 2n + 13 whose
+    # valid entries are not a prefix, among u >= n and u < 0 sentinels
+    n_r, ips = 600, []
+    for _ in range(3):
+        deg = rng.integers(0, 10, size=n_r)
+        deg[[4, 40]] = 0
+        deg[256:512] = 0
+        deg[7] = 3000
+        ips.append(np.concatenate([[0], np.cumsum(deg)]))
+    a_r = max(int(x[-1]) for x in ips) + 17
+    heads_np = rng.integers(-3, n_r + 3, size=(3, a_r))
+    res_np = rng.integers(-1, 3, size=(3, a_r))
+    for b, ip_ in enumerate(ips):
+        res_np[b, ip_[11]:ip_[12]] = 0  # an all-INF segment
+        res_np[b, ip_[-1]:] = 1  # padded arcs
+    h_np = rng.integers(0, n_r + 2, size=(3, n_r))
+    h_np[rng.random((3, n_r)) < 0.1] = inf
+    key_np = np.where(res_np > 0, np.take_along_axis(
+        h_np, np.clip(heads_np, 0, n_r - 1), axis=1), inf)
+    ip_r, heads_r, res_r, h_r, key_r = (
+        torch.tensor(x, dtype=torch.int32, device=dev)
+        for x in (np.stack(ips), heads_np, res_np, h_np, key_np))
+    special = [7, 4, 11, 300]  # hub, empty, all-INF, in the empty tile
+    others = np.setdiff1d(np.arange(n_r), special)
+    queues = []
+    for q in (40, n_r, 2 * n_r + 13):
+        live = min(q // 2, n_r - len(special))
+        queues.append(torch.tensor(np.stack([rng.permutation(np.concatenate([
+            special[:live], rng.choice(others, size=live - min(live, 4),
+                                       replace=False),
+            rng.choice([n_r, n_r + 7, -1, -5], size=q - live)]))
+            for _ in range(3)]), dtype=torch.int32, device=dev))
+    for q_r in queues + [None]:
+        form = "dense" if q_r is None else "avq"
+        for sl, what in ((0, "1-D"), (slice(None), "B=3")):
+            avq_s = None if q_r is None else q_r[sl]
+            what = f"{what}, Q={n_r if q_r is None else q_r.shape[-1]}"
+            gargs = (avq_s, ip_r[sl], heads_r[sl], res_r[sl], h_r[sl])
+            got = tile_min_neighbor(avq_s, ip_r[sl], key_r[sl], n=n_r)
+            hold(f"tile_min_neighbor[{form}]", got,
+                 tile_min_neighbor_plain(avq_s, ip_r[sl], key_r[sl], n=n_r),
+                 what)
+            hold(f"tile_min_neighbor_gather[{form}]",
+                 tile_min_neighbor_gather(*gargs, n=n_r),
+                 tile_min_neighbor_gather_plain(*gargs, n=n_r), what)
+            hold(f"tile_min_neighbor_gather[{form}]",
+                 tile_min_neighbor_gather(*gargs, n=n_r), got,
+                 f"{what}, against the key entry")
 
     # reverse search: three BCSR rows padded to one arc count, a hub
     # vertex of degree > 1024 for deep searches, arcs >= A as sentinels
@@ -585,6 +659,21 @@ def main(argv=None) -> int:
             got, want = got[:5] + got[5], want[:5] + want[5]
         hold("fused_discharge_batched", tuple(got), tuple(want),
              f"batched path, post-relabel, counters={counters}")
+    # the min search at the batched path's shapes, both entries and forms
+    bavq = batched.row_avq(batched.active_rows(bstate.h, bstate.e, bmeta.n,
+                                               bbg.s, bbg.t))
+    bkey = torch.where(bstate.res > 0, torch.gather(
+        bstate.h, 1, torch.clamp(bbg.heads, 0, bmeta.n - 1).long()), inf)
+    for q_b, form in ((bavq, "avq"), (None, "dense")):
+        gargs = (q_b, bbg.indptr, bbg.heads, bstate.res, bstate.h)
+        hold(f"tile_min_neighbor[{form}]",
+             tile_min_neighbor(q_b, bbg.indptr, bkey, n=bmeta.n),
+             tile_min_neighbor_plain(q_b, bbg.indptr, bkey, n=bmeta.n),
+             "batched path, post-relabel")
+        hold(f"tile_min_neighbor_gather[{form}]",
+             tile_min_neighbor_gather(*gargs, n=bmeta.n),
+             tile_min_neighbor_gather_plain(*gargs, n=bmeta.n),
+             "batched path, post-relabel")
     chunk = engine.DEFAULT_CHUNK
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -633,6 +722,14 @@ def main(argv=None) -> int:
     dist = torch.clamp(globalrelabel.residual_distances_impl(
         g, meta, state.res, t, minh_fn)[0] + 1, max=inf)
     dkey = torch.where(state.res > 0, dist[g.heads], inf)
+    # arcs with res > 0, of the frontier (the AVQ gather reads their head)
+    # and of the graph (the dense gather's), and the distinct heads among
+    # them, whose heights each gather reads once
+    f_mask = act[g.tails.long()] & (state.res > 0)
+    frontier_pos = int(f_mask.sum())
+    frontier_heads = int(torch.unique(g.heads[f_mask]).numel())
+    res_pos = int((state.res > 0).sum())
+    res_heads = int(torch.unique(g.heads[state.res > 0]).numel())
     minh, argarc = tile_min_neighbor(avq, g.indptr, key, n=n)
     u_c = torch.clamp(avq, max=n - 1)
     _, do_push = pr._push_decision(state.h, u_c, avq < n, minh)
@@ -660,6 +757,30 @@ def main(argv=None) -> int:
                 0, tails64, dkey, "amin"),
             bytes=4 * (n + 1) + 4 * a + 8 * n, source="segmin",
             shape={"Q": n, "A": a}),
+        "tile_min_neighbor_gather[avq]": dict(
+            kernel=lambda: tile_min_neighbor_gather(
+                avq, g.indptr, g.heads, state.res, state.h, n=n),
+            plain=lambda: tile_min_neighbor_gather_plain(
+                avq, g.indptr, g.heads, state.res, state.h, n=n),
+            # the key-in form's bytes with res for each frontier arc, the
+            # head of each with res > 0 and each such head's height once
+            library=None, bytes=12 * n + 8 * n_active + 4 * frontier
+            + 4 * frontier_pos + 4 * frontier_heads, source="segmin",
+            shape={"Q": n, "A": a, "active": n_active,
+                   "frontier_arcs": frontier,
+                   "frontier_arcs_res_pos": frontier_pos,
+                   "their_heads": frontier_heads}),
+        "tile_min_neighbor_gather[dense]": dict(
+            kernel=lambda: tile_min_neighbor_gather(
+                None, g.indptr, g.heads, state.res, dist, n=n),
+            plain=lambda: tile_min_neighbor_gather_plain(
+                None, g.indptr, g.heads, state.res, dist, n=n),
+            # indptr, every res, the head of each arc with res > 0 and each
+            # such head's height once, two outputs per vertex
+            library=None, bytes=4 * (n + 1) + 4 * a + 4 * res_pos
+            + 4 * res_heads + 8 * n, source="segmin",
+            shape={"Q": n, "A": a, "arcs_res_pos": res_pos,
+                   "their_heads": res_heads}),
         "bcsr_rev_search": dict(
             kernel=lambda: bcsr_rev_search(push, g.indptr, g.heads, g.tails,
                                            deg_max=meta.deg_max),
@@ -711,6 +832,10 @@ def main(argv=None) -> int:
                # what the first design moves besides: the snapshot copy,
                # res/h/e read and written once a cycle
                "snapshot_bytes": K_DEFAULT * 8 * (a + 2 * n)})
+    # the least time the CUDA-event pair reports for any launch
+    tiny = torch.zeros(1, dtype=torch.int32, device=dev)
+    emit({"phase": "timing_floor", "what": "one-element fill_",
+          "ms": device_ms(torch, lambda: tiny.fill_(0), REPS)})
     rows_out = []
     for name, c in cases.items():
         hold(name, c["kernel"](), c["plain"](), "main-path shapes")
@@ -724,15 +849,37 @@ def main(argv=None) -> int:
         bound_ms = 1e3 * c["bytes"] / HBM_BYTES_PER_S
         emit({"phase": "kernel_timing", "name": name, "shape": c["shape"],
               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-              "bound_ms": bound_ms, "bytes": c["bytes"]})
+              "bound_ms": bound_ms, "bytes": c["bytes"],
+              "bound_share": bound_ms / ms})
         rows_out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{c['source']}.cu",
             "replaces": REPLACES[c["source"]],
             "launches": paths["fused" if name == "fused_discharge_batched"
                               else "main"][name],
+            "on_path": name not in KEY_IN,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms})
+
+    # the solver's hook before and after the fusion, at this state: the
+    # key built by two eager ops and read by the key-in kernel, against the
+    # gather entry (the sweep's pseudo-height ``dist`` in the dense form)
+    for form, q_h, h_h in (("avq", avq, state.h), ("dense", None, dist)):
+        def unfused(q_h=q_h, h_h=h_h):
+            key_h = torch.where(state.res > 0, h_h[g.heads], inf)
+            return tile_min_neighbor(q_h, g.indptr, key_h, n=n)
+
+        def gather(q_h=q_h, h_h=h_h):
+            return tile_min_neighbor_gather(q_h, g.indptr, g.heads,
+                                            state.res, h_h, n=n)
+
+        hold(f"tile_min_neighbor_gather[{form}]", gather(), unfused(),
+             "main-path shapes, against the unfused hook")
+        unfused_ms = device_ms(torch, unfused, REPS)
+        gather_ms = device_ms(torch, gather, REPS)
+        emit({"phase": "hook_timing", "form": form, "unfused_ms": unfused_ms,
+              "gather_ms": gather_ms, "unfused_over_gather":
+              unfused_ms / gather_ms})
 
     # -- 7. where a step's time goes: host enqueue, wall, device ---------
     loops = {}
@@ -743,6 +890,7 @@ def main(argv=None) -> int:
         sweep, dist0 = globalrelabel.distance_sweep(g, meta, state.res, t, fn)
         loops[name] = engine.fixpoint_loop(sweep, dist0, cap=2**30)
     chunk = engine.DEFAULT_CHUNK
+    timed = []
     for name, (step, cond, carry) in loops.items():
         def run(step=step, cond=cond, carry=carry):
             return engine.run_chunk(step, carry, cond_fn=cond, chunk=chunk)
@@ -758,14 +906,29 @@ def main(argv=None) -> int:
         dev_step = device_ms(torch, run, REPS, 100_000_000) / chunk
         # a vc_fused step is one launch of K cycles; the rest one cycle
         per = K_DEFAULT if name == "cycle[vc_fused]" else 1
-        emit({"phase": "step_timing", "loop": name, "cycles_per_step": per,
-              "host_ms_per_step": 1e3 * (t1 - t0) / (10 * chunk),
-              "wall_ms_per_step": wall, "device_ms_per_step": dev_step,
-              "host_ms_per_cycle": 1e3 * (t1 - t0) / (10 * chunk * per),
-              "wall_ms_per_cycle": wall / per,
-              "device_ms_per_cycle": dev_step / per,
-              "device_idle_share": max(0.0, 1 - dev_step / wall),
-              "top_device_us_per_step": top_device_ops(torch, run, chunk)})
+        timed.append((run, {
+            "phase": "step_timing", "loop": name, "cycles_per_step": per,
+            "host_ms_per_step": 1e3 * (t1 - t0) / (10 * chunk),
+            "wall_ms_per_step": wall, "device_ms_per_step": dev_step,
+            "host_ms_per_cycle": 1e3 * (t1 - t0) / (10 * chunk * per),
+            "wall_ms_per_cycle": wall / per,
+            "device_ms_per_cycle": dev_step / per,
+            "device_idle_share": max(0.0, 1 - dev_step / wall)}))
+    # a whole global relabel from this state, as the solve runs it (one
+    # host read per chunk of sweeps): its wall time per sweep
+    for name, fn in (("kernel", minh_fn), ("plain", None)):
+        globalrelabel.global_relabel_impl(g, meta, state, s, t, fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweeps = int(globalrelabel.global_relabel_impl(g, meta, state, s, t,
+                                                       fn)[2])
+        wall = time.perf_counter() - t0
+        emit({"phase": "relabel_timing", "minh": name, "sweeps": sweeps,
+              "wall_s": wall, "wall_ms_per_sweep": 1e3 * wall / sweeps})
+    # the profiler last, so that no host timing follows a profiled window
+    for run, row in timed:
+        emit({**row, "top_device_us_per_step": top_device_ops(torch, run,
+                                                              chunk)})
 
     emit({"phase": "done", "quick": args.quick,
           "seconds": time.perf_counter() - t_start})

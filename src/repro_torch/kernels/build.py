@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  A
-library is built at first use into ``build/repro_torch/`` at the root of
-the checkout (for an installed package, which has no checkout, into
-``repro_torch/`` under ``$XDG_CACHE_HOME`` or ``~/.cache``) and named by a
-hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+Each ``csrc/<name>.cu`` has a plain C interface (one or more entry
+points, :data:`SIGNATURES`) and is compiled by ``nvcc`` for ``sm_90a``
+into its own shared library, loaded with ``ctypes``.  A library is built
+at first use into ``build/repro_torch/`` at the root of the checkout (for
+an installed package, which has no checkout, into ``repro_torch/`` under
+``$XDG_CACHE_HOME`` or ``~/.cache``) and named by a hash of its source and
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is.
 :func:`build_all` starts one ``nvcc`` per source, all at once.  A failed
 build raises; nothing falls back to the plain PyTorch versions.
 
@@ -43,22 +44,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: argtypes of each library's entry point (pointers and the stream as
-#: ``c_void_p``, so ctypes never truncates them to 32 bits)
+#: argtypes of each library's entry points, by symbol (pointers and the
+#: stream as ``c_void_p``, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    # avq|NULL, indptr, key, minh, argarc, batch, q, n, a, stream
-    "segmin": ("tile_min_neighbor_launch", (_P, _P, _P, _P, _P, _I, _I, _I,
-                                            _I, _P)),
+    "segmin": {
+        # avq|NULL, indptr, key, minh, argarc, batch, q, n, a, stream
+        "tile_min_neighbor_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
+        # avq|NULL, indptr, heads, res, h, minh, argarc, batch, q, n, a,
+        # stream
+        "tile_min_neighbor_gather_launch": (_P,) * 7 + (_I,) * 4 + (_P,),
+    },
     # arcs, indptr, heads, tails, out, batch, p, n, a, steps, stream
-    "revsearch": ("bcsr_rev_search_launch", (_P, _P, _P, _P, _P, _I, _I, _I,
-                                             _I, _I, _P)),
+    "revsearch": {"bcsr_rev_search_launch": (_P,) * 5 + (_I,) * 5 + (_P,)},
     # s, t, indptr, heads, rev, res/h/e in, res/h/e out, live, pushed,
     # cnt, res/h/e snapshots, batch, n, a, k, stream
-    "discharge": ("fused_discharge_launch", (_P,) * 17 + (_I,) * 4 + (_P,)),
+    "discharge": {"fused_discharge_launch": (_P,) * 17 + (_I,) * 4 + (_P,)},
 }
 
 _lock = threading.Lock()
-_entry: dict[str, ctypes._CFuncPtr] = {}
+_entry: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -108,19 +112,19 @@ def build_all(names=None) -> dict[str, str]:
     return logs
 
 
-def entry(name: str) -> ctypes._CFuncPtr:
-    """The launch function of ``csrc/<name>.cu``, built on first use."""
-    fn = _entry.get(name)
+def entry(name: str, symbol: str) -> ctypes._CFuncPtr:
+    """The launch function ``symbol`` of ``csrc/<name>.cu``, built on
+    first use."""
+    fn = _entry.get((name, symbol))
     if fn is None:
         with _lock:
-            fn = _entry.get(name)
+            fn = _entry.get((name, symbol))
             if fn is None:
                 build_all([name])
-                symbol, argtypes = SIGNATURES[name]
                 fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
-                fn.argtypes = list(argtypes)
+                fn.argtypes = list(SIGNATURES[name][symbol])
                 fn.restype = ctypes.c_int
-                _entry[name] = fn
+                _entry[(name, symbol)] = fn
     return fn
 
 

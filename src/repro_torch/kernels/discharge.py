@@ -76,7 +76,7 @@ def fused_discharge_batched(s, t, indptr, heads, rev, res, h, e, *, n: int,
     pushed = torch.empty_like(live)
     cnt = torch.empty((4, bsz, k), dtype=_I32, device=dev)
     snap = [torch.empty_like(x) for x in (res, h, e)]
-    fn = build.entry("discharge")
+    fn = build.entry("discharge", "fused_discharge_launch")
     with torch.cuda.device(dev):
         code = fn(*(x.data_ptr() for x in (s, t, indptr, heads, rev, res, h,
                                            e, res2, h2, e2, live, pushed,

@@ -6,31 +6,24 @@ PyTorch version for CPU tensors, so these hooks need no device argument.
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.revsearch import bcsr_rev_search
-from repro_torch.kernels.segmin import tile_min_neighbor
-
-INF = kref.INF
+from repro_torch.kernels.segmin import tile_min_neighbor_gather
 
 
 def min_neighbor_kernel(g, meta, state, avq, q_valid):
     """Drop-in for ``pushrelabel._flat_frontier_minh`` backed by the
-    warp-per-vertex kernel (the paper's faithful VC mode).  Returns
-    ``(minh, argarc)`` with the ``argarc == A`` sentinel where no eligible
-    arc exists — the flat path's sentinel.
+    min-search kernel (the paper's faithful VC mode), which forms the key
+    ``where(res > 0, h[heads], INF)`` per arc itself: no key array is
+    built.  Returns ``(minh, argarc)`` with the ``argarc == A`` sentinel
+    where no eligible arc exists — the flat path's sentinel.
 
     Serves 1-D states (``g`` holds ``(n+1,)``/``(A,)`` rows) and batched
-    ``(B, ·)`` states in one launch.  ``avq=None`` is the dense
+    ``(B, ·)`` states in one launch (row ``b``'s heads index row ``b`` of
+    ``h``, clamped for the padded arcs).  ``avq=None`` is the dense
     every-vertex form the distance sweeps use."""
-    if state.h.ndim == 2:  # batched rows: per-row gather of h[heads]
-        hh = torch.gather(state.h, 1,
-                          torch.clamp(g.heads, 0, meta.n - 1).long())
-    else:
-        hh = state.h[g.heads]
-    key = torch.where(state.res > 0, hh, INF)
-    return tile_min_neighbor(avq, g.indptr, key, n=meta.n)
+    return tile_min_neighbor_gather(avq, g.indptr, g.heads, state.res,
+                                    state.h, n=meta.n)
 
 
 def min_neighbor_minh_fn():

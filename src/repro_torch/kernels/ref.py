@@ -44,8 +44,12 @@ def min_neighbor_ref(avq: torch.Tensor, indptr: torch.Tensor,
                      key: torch.Tensor, *, n: int):
     """Plain ``segmin.tile_min_neighbor`` for one row: per queue entry the
     min key over its CSR segment and the smallest arc index attaining it,
-    ``(INF, A)`` where no key below INF exists.  A flat frontier of every
-    entry's arcs, reduced with two segmented mins.  As in the JAX
+    ``(INF, A)`` where ``u < 0``, ``u >= n`` or no key below INF exists.
+    ``u < 0`` as a sentinel is the port's own extension: the JAX reference
+    clamps ``u`` only from above, and its TPU kernel reads out of range
+    there, so the two agree only on queues padded with ``n``, the
+    reference's contract.  A flat frontier of every entry's arcs, reduced
+    with two segmented mins.  As in the JAX
     package's version, the frontier holds at most ``A`` arcs: the entries
     below ``n`` must be distinct, as an AVQ's are (the kernel has no such
     limit)."""
@@ -60,8 +64,8 @@ def min_neighbor_segments(avq: torch.Tensor, starts: torch.Tensor,
     a = key.shape[0]
     q = avq.shape[0]
     dev = key.device
-    q_valid = avq < n
-    avq_c = torch.clamp(avq, max=n - 1)
+    q_valid = (avq >= 0) & (avq < n)
+    avq_c = torch.clamp(avq, 0, n - 1)
     lo = starts[avq_c]
     deg = torch.where(q_valid, ends[avq_c] - lo, 0)
     offs = torch.cumsum(deg, 0, dtype=_I32)

@@ -50,7 +50,7 @@ def bcsr_rev_search(arcs: torch.Tensor, indptr: torch.Tensor,
     if arcs.device.type != "cuda":
         raise ValueError(f"unsupported device {arcs.device}")
     out = torch.empty_like(arcs)
-    fn = build.entry("revsearch")
+    fn = build.entry("revsearch", "bcsr_rev_search_launch")
     with torch.cuda.device(arcs.device):
         code = fn(arcs.data_ptr(), indptr.data_ptr(), heads.data_ptr(),
                   tails.data_ptr(), out.data_ptr(),

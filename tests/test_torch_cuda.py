@@ -19,6 +19,8 @@ from repro_torch.kernels import discharge as tdis
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.revsearch import bcsr_rev_search, search_steps
 from repro_torch.kernels.segmin import (tile_min_neighbor,
+                                        tile_min_neighbor_gather,
+                                        tile_min_neighbor_gather_plain,
                                         tile_min_neighbor_plain)
 
 INF = kref.INF
@@ -94,6 +96,119 @@ def test_segmin_kernel_matches_plain(cuda, batched):
     assert tile_min_neighbor.launches == before + 2
 
 
+def _segmin_rows(b: int, seed: int):
+    """``b`` rows of 600 vertices (not a multiple of the dense form's tile
+    of 256) in numpy: a hub of 3000 arcs (vertex 7), a tile of empty
+    segments only (vertices 256..511), empty segments (4, 40), an all-INF
+    segment (11, ``res <= 0``), heads out of range inside segments and on
+    the padded arcs past each row's last segment (with ``res > 0``), and
+    heights with INF among them.  Returns ``(indptr, heads, res, h,
+    key)``, ``key`` the gather entry's key built in numpy."""
+    rng = np.random.default_rng(seed)
+    n = 600
+    rows = []
+    for _ in range(b):
+        deg = rng.integers(0, 10, size=n)
+        deg[[4, 40]] = 0
+        deg[256:512] = 0
+        deg[7] = 3000
+        rows.append(np.concatenate([[0], np.cumsum(deg)]))
+    a = max(int(r[-1]) for r in rows) + 17  # every row has padded arcs
+    heads = rng.integers(-3, n + 3, size=(b, a))
+    res = rng.integers(-1, 3, size=(b, a))
+    for i, ip in enumerate(rows):
+        res[i, ip[11]:ip[12]] = 0
+        res[i, ip[-1]:] = 1
+    h = rng.integers(0, n + 2, size=(b, n))
+    h[rng.random((b, n)) < 0.1] = INF
+    hh = np.take_along_axis(h, np.clip(heads, 0, n - 1), axis=1)
+    key = np.where(res > 0, hh, INF)
+    return np.stack(rows), heads, res, h, key
+
+
+def _segmin_queues(b: int, q: int, seed: int):
+    """``(b, q)`` queues of distinct vertices of :func:`_segmin_rows`
+    (the hub, an empty, an all-INF and an empty-tile vertex among them)
+    mixed with ``u >= n`` and ``u < 0`` sentinels: the valid entries are
+    not a prefix."""
+    rng = np.random.default_rng(seed)
+    n = 600
+    special = [7, 4, 11, 300]
+    others = np.setdiff1d(np.arange(n), special)
+    out = np.empty((b, q), np.int64)
+    for i in range(b):
+        live = min(q // 2, n - len(special))
+        row = np.concatenate([
+            special[:live], rng.choice(others, size=live - min(live, 4),
+                                       replace=False),
+            rng.choice([n, n + 7, -1, -5], size=q - live)])
+        out[i] = rng.permutation(row)
+    return out
+
+
+@pytest.mark.parametrize("entry", ["key", "gather"])
+@pytest.mark.parametrize("batched", [False, True])
+def test_segmin_redesign_edge_cases(cuda, entry, batched):
+    """Both entries, both forms, against their plain versions: a hub of
+    3000 arcs, a tile of empty segments only, ``n`` not a multiple of the
+    tile, queues whose valid entries are not a prefix, ``Q`` below, at
+    and above ``n``, ``u < 0``, all-INF segments, heads out of range, B = 3
+    rows with padded arcs; and the gather entry equal to the key entry on
+    its key."""
+    n, b = 600, 3
+    indptr, heads, res, h, key = (_t(x, cuda) for x in _segmin_rows(b, 11))
+    sl = slice(None) if batched else 0
+    queues = [_t(_segmin_queues(b, q, 12 + q)[sl], cuda)
+              for q in (40, n, 2 * n + 13)] + [None]
+    for avq in queues:
+        ip = indptr[sl]
+        if entry == "key":
+            got = tile_min_neighbor(avq, ip, key[sl], n=n)
+            want = tile_min_neighbor_plain(avq, ip, key[sl], n=n)
+        else:
+            args = (avq, ip, heads[sl], res[sl], h[sl])
+            before = (tile_min_neighbor.launches,
+                      tile_min_neighbor_gather.launches)
+            got = tile_min_neighbor_gather(*args, n=n)
+            assert (tile_min_neighbor.launches,
+                    tile_min_neighbor_gather.launches) == (
+                        before[0], before[1] + 1)
+            want = tile_min_neighbor_gather_plain(*args, n=n)
+            _same(got, tile_min_neighbor(avq, ip, key[sl], n=n))
+        _same(got, want)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_segmin_gather_matches_plain(cuda, batched):
+    """The gather entry on the sentinel cases of
+    :func:`test_segmin_kernel_matches_plain`, its key built from random
+    heads, residuals and heights."""
+    rng = np.random.default_rng(5)
+    n, b = 300, 3
+    deg = rng.integers(0, 9, size=n)
+    deg[[4, 40]] = 0
+    deg[7] = 2500
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    a = int(indptr[-1])
+    heads = rng.integers(0, n, size=(b, a))
+    res = rng.integers(-1, 3, size=(b, a))
+    res[:, indptr[11]:indptr[12]] = 0
+    h = rng.integers(0, n + 2, size=(b, n))
+    avq = np.full((b, n), n)
+    special = [4, 7, 11, 40]  # empty, long, all-INF, empty
+    others = np.setdiff1d(np.arange(n), special)
+    for i in range(b):
+        live = np.sort(rng.choice(others, size=120, replace=False))
+        avq[i, :124] = np.concatenate([special, live])
+    ip = np.tile(indptr, (b, 1))
+    sl = slice(None) if batched else 0
+    ip, heads, res, h, avq = (_t(x[sl], cuda)
+                              for x in (ip, heads, res, h, avq))
+    for q in (avq, None):
+        _same(tile_min_neighbor_gather(q, ip, heads, res, h, n=n),
+              tile_min_neighbor_gather_plain(q, ip, heads, res, h, n=n))
+
+
 @pytest.mark.parametrize("batched", [False, True])
 def test_revsearch_kernel_matches_plain_and_rev_table(cuda, batched):
     (indptr, heads, tails, rev), a, deg_max = _rows(3, 50)
@@ -110,18 +225,34 @@ def test_revsearch_kernel_matches_plain_and_rev_table(cuda, batched):
         assert torch.equal(got[real], want[real])
 
 
+@pytest.mark.parametrize("backend", ["single", "batched"])
 @pytest.mark.parametrize("mode", ["vc_kernel", "vc_kernel_bsearch"])
-def test_kernel_mode_solve_matches_cpu(cuda, mode):
-    g, s, t = washington_rlg(24, 24, seed=3)
-    p = MaxflowProblem(g, s, t)
-    on_card = Solver(mode=mode, device="cuda").solve(p)
-    on_cpu = Solver(mode="vc", device="cpu").solve(p)
-    assert on_card.value == on_cpu.value
-    for f in ("cycles", "rounds", "global_relabels", "gr_sweeps"):
-        assert getattr(on_card.stats, f) == getattr(on_cpu.stats, f), f
-    for f in ("res", "h", "e"):
-        assert torch.equal(getattr(on_card.state, f).cpu(),
-                           getattr(on_cpu.state, f)), f
+def test_kernel_mode_solve_matches_cpu(cuda, mode, backend):
+    """A kernel mode on the card (the gather entry in every cycle and
+    sweep) equals the plain ``vc`` solve on the CPU; batched: two rows of
+    different sizes through ``solve_many``."""
+    probs = [MaxflowProblem(*washington_rlg(24, 24, seed=3))]
+    if backend == "batched":
+        probs.append(MaxflowProblem(*washington_rlg(17, 29, seed=4)))
+    before = (tile_min_neighbor.launches, tile_min_neighbor_gather.launches)
+
+    def run(m, device):
+        solver = Solver(mode=m, backend=backend, device=device)
+        if backend == "batched":
+            return solver.solve_many(probs)
+        return [solver.solve(p) for p in probs]
+
+    on_card, on_cpu = run(mode, "cuda"), run("vc", "cpu")
+    # the solver's hook builds no key: the key-in entry never launches
+    assert tile_min_neighbor.launches == before[0]
+    assert tile_min_neighbor_gather.launches > before[1]
+    for a, b in zip(on_card, on_cpu):
+        assert a.value == b.value
+        for f in ("cycles", "rounds", "global_relabels", "gr_sweeps"):
+            assert getattr(a.stats, f) == getattr(b.stats, f), f
+        for f in ("res", "h", "e"):
+            assert torch.equal(getattr(a.state, f).cpu(),
+                               getattr(b.state, f)), f
 
 
 def _fused_batch(dev):

@@ -1,6 +1,7 @@
 """The port's two kernels, through their wrappers, against the JAX
 package's oracles on the same numpy inputs: ``tile_min_neighbor`` (AVQ and
-dense forms, 1-D and ``(B, ·)``) against ``repro.kernels.ref.
+dense forms, 1-D and ``(B, ·)``) and its key-gathering entry
+``tile_min_neighbor_gather`` against ``repro.kernels.ref.
 min_neighbor_ref`` and the XLA ``_flat_frontier_minh``, ``bcsr_rev_search``
 against the build-time ``rev`` table.  The reference's own Pallas kernels do
 not run on this jax; its tests prove these oracles equal to them.  On the
@@ -21,7 +22,8 @@ from repro.core.csr import Graph, build_residual
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.revsearch import bcsr_rev_search
-from repro_torch.kernels.segmin import tile_min_neighbor
+from repro_torch.kernels.segmin import (tile_min_neighbor,
+                                        tile_min_neighbor_gather)
 from tests.conftest import random_graph
 
 INF = int(jref.INF)
@@ -144,6 +146,68 @@ def test_segmin_batch_rows_match_single_rows():
 
 
 @pytest.mark.parametrize("seed", range(3))
+def test_segmin_gather_avq_matches_flat_frontier(seed):
+    """The gather entry's AVQ form, its key formed from ``res``, ``heads``
+    and ``h``, equals the reference's XLA min search."""
+    r, dg, meta, state, avq, _ = _instance(seed)
+    fm, fa = jpr._flat_frontier_minh(dg, meta, state, avq, avq < meta.n)
+    got = tile_min_neighbor_gather(_t(avq), _t(r.indptr), _t(r.heads),
+                                   _t(state.res), _t(state.h), n=meta.n)
+    np.testing.assert_array_equal(got[0].numpy(), _np(fm))
+    np.testing.assert_array_equal(got[1].numpy(), _np(fa))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_segmin_gather_dense_matches_ref(batched):
+    """The gather entry's dense form equals ``min_neighbor_ref`` with
+    ``avq = arange(n)`` on the key built in numpy; batched rows have padded
+    arcs (and a few heads inside segments) out of range, which the key
+    clamps to ``[0, n-1]``."""
+    rng = np.random.default_rng(41 + batched)
+    n, b = 50, 3 if batched else 1
+    indptr = [np.concatenate([[0], np.cumsum(rng.integers(0, 7, size=n))])
+              for _ in range(b)]
+    a = max(int(x[-1]) for x in indptr) + 5
+    heads = rng.integers(0, n, size=(b, a))
+    heads[rng.random((b, a)) < 0.05] = n + 4
+    for i, ip in enumerate(indptr):
+        heads[i, ip[-1]:] = rng.integers(-9, 2 * n, size=a - ip[-1])
+    res = rng.integers(-2, 4, size=(b, a))
+    h = rng.integers(0, n + 3, size=(b, n))
+    h[rng.random((b, n)) < 0.1] = INF
+    key = np.where(res > 0, np.take_along_axis(h, np.clip(heads, 0, n - 1),
+                                               axis=1), INF)
+    args = [_t(np.stack(indptr)), _t(heads), _t(res), _t(h)]
+    if not batched:
+        args = [x[0] for x in args]
+    got = tile_min_neighbor_gather(None, *args, n=n)
+    arange = jnp.arange(n, dtype=jnp.int32)
+    for i in range(b):
+        want = jref.min_neighbor_ref(arange, jnp.asarray(indptr[i], jnp.int32),
+                                     jnp.asarray(key[i], jnp.int32), n=n)
+        for g_, w in zip(got, want):
+            np.testing.assert_array_equal((g_[i] if batched else g_).numpy(),
+                                          _np(w))
+
+
+def test_segmin_negative_entries_are_sentinels():
+    """A queue entry ``u < 0`` gives ``(INF, A)``, as ``u >= n`` does, in
+    both entries (the kernel's ballot takes ``0 <= u < n`` only)."""
+    r, _, meta, state, _, key = _instance(2)
+    n, a = meta.n, meta.num_arcs
+    avq = _t([0, -1, n, 1, -7, 2])
+    want = tile_min_neighbor(_t([0, n, n, 1, n, 2]), _t(r.indptr), _t(key),
+                             n=n)
+    for got in (tile_min_neighbor(avq, _t(r.indptr), _t(key), n=n),
+                tile_min_neighbor_gather(avq, _t(r.indptr), _t(r.heads),
+                                         _t(state.res), _t(state.h), n=n)):
+        for g_, w in zip(got, want):
+            assert torch.equal(g_, w)
+        assert got[0][[1, 4]].tolist() == [INF, INF]
+        assert got[1][[1, 4]].tolist() == [a, a]
+
+
+@pytest.mark.parametrize("seed", range(3))
 def test_revsearch_matches_rev_table(seed):
     rng = np.random.default_rng(100 + seed)
     r, dg, meta, _, _, _ = _instance(seed)
@@ -185,15 +249,22 @@ def test_revsearch_batch_rows_and_deep_segments():
 
 
 def test_cpu_wrappers_launch_nothing():
-    r, _, meta, _, avq, key = _instance(1)
-    before = (tile_min_neighbor.launches, tile_min_neighbor.dense_launches,
-              bcsr_rev_search.launches)
-    tile_min_neighbor(_t(avq), _t(r.indptr), _t(key), n=meta.n)
-    tile_min_neighbor(None, _t(r.indptr), _t(key), n=meta.n)
+    r, _, meta, state, avq, key = _instance(1)
+
+    def counts():
+        return (tile_min_neighbor.launches, tile_min_neighbor.dense_launches,
+                tile_min_neighbor_gather.launches,
+                tile_min_neighbor_gather.dense_launches,
+                bcsr_rev_search.launches)
+
+    before = counts()
+    for q in (_t(avq), None):
+        tile_min_neighbor(q, _t(r.indptr), _t(key), n=meta.n)
+        tile_min_neighbor_gather(q, _t(r.indptr), _t(r.heads),
+                                 _t(state.res), _t(state.h), n=meta.n)
     bcsr_rev_search(_t(np.arange(4)), _t(r.indptr), _t(r.heads),
                     _t(r.tails), deg_max=meta.deg_max)
-    assert (tile_min_neighbor.launches, tile_min_neighbor.dense_launches,
-            bcsr_rev_search.launches) == before == (0, 0, 0)
+    assert counts() == before == (0,) * 5
 
 
 def test_wrappers_reject_bad_operands():
@@ -207,6 +278,55 @@ def test_wrappers_reject_bad_operands():
         tile_min_neighbor(_t([[0, 0], [1, 1]]).t()[0], ind, key, n=2)
     with pytest.raises(ValueError, match="shape"):
         bcsr_rev_search(_t([0]), ind, key, _t([0, 1, 2]), deg_max=1)
+
+
+def test_gather_wrapper_rejects_bad_operands():
+    """``tile_min_neighbor_gather`` checks every operand: types, shapes
+    (``h`` has ``n`` entries a row, ``heads``/``res`` the arcs'),
+    contiguity and rank."""
+    ind, heads, res, h = _t([0, 1, 2]), _t([1, 0]), _t([1, 1]), _t([3, 4])
+    with pytest.raises(TypeError, match="int32"):
+        tile_min_neighbor_gather(None, ind, heads.long(), res, h, n=2)
+    with pytest.raises(TypeError, match="int32"):
+        tile_min_neighbor_gather(None, ind, heads, res, h.float(), n=2)
+    with pytest.raises(ValueError, match="h has shape"):
+        tile_min_neighbor_gather(None, ind, heads, res, _t([3, 4, 5]), n=2)
+    with pytest.raises(ValueError, match="heads has shape"):
+        tile_min_neighbor_gather(None, ind, _t([1, 0, 1]), res, h, n=2)
+    with pytest.raises(ValueError, match="avq has shape"):
+        tile_min_neighbor_gather(_t([[0, 1]]), ind, heads, res, h, n=2)
+    with pytest.raises(ValueError, match="indptr has shape"):
+        tile_min_neighbor_gather(None, _t([[0, 1, 2]]), _t([[1, 0]]),
+                                 _t([[1, 1]]), _t([[3, 4]]), n=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tile_min_neighbor_gather(None, ind, heads, _t([[1, 0], [1, 0]]).t()[0],
+                                 h, n=2)
+    with pytest.raises(ValueError, match=r"\(A,\) or \(B, A\)"):
+        tile_min_neighbor_gather(None, ind, heads, _t(np.ones((1, 1, 2))),
+                                 h, n=2)
+
+
+def test_build_signatures_cover_every_entry_point():
+    """Every ``extern "C"`` entry point of each ``csrc/<name>.cu`` is
+    declared in ``build.SIGNATURES`` under its library with ctypes
+    argtypes, one per C parameter (pointers and the stream as
+    ``c_void_p``, ints as ``c_int``), and nothing else is declared."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import build
+
+    sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    assert sorted(build.SIGNATURES) == sources
+    for name in sources:
+        text = (build.CSRC / f"{name}.cu").read_text()
+        decls = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text))
+        assert set(build.SIGNATURES[name]) == set(decls), name
+        for symbol, params in decls.items():
+            params = [" ".join(x.split()) for x in params.split(",")]
+            want = tuple(ctypes.c_void_p if "*" in x else ctypes.c_int
+                         for x in params)
+            assert tuple(build.SIGNATURES[name][symbol]) == want, symbol
 
 
 def test_frontier_rows_is_truncated_repeat():
