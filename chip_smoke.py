@@ -24,9 +24,11 @@ just before it and read just after:
 
 The fused discharge is also held against its plain version at the
 batched path's own shapes (after the first global relabel and mid-solve)
-and on more rows than the card holds resident blocks.  It checks that one
-engine chunk of cycles (``vc_kernel_bsearch`` and ``vc_fused``, single and
-batched) and of global-relabel sweeps never synchronises with the host,
+and on more rows than the card holds resident blocks, through both its
+entries: the in-place one the drivers run, with its gate open and closed,
+and the out-of-place one.  It checks that one engine chunk of cycles
+(``vc_kernel_bsearch`` and ``vc_fused``, single and batched) and of
+global-relabel sweeps never synchronises with the host,
 and times every kernel beside its plain version, a PyTorch yardstick call
 where one exists and its memory bound, the min search's hook with its key
 built by eager ops against the entry that gathers the key itself
@@ -100,15 +102,20 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def device_ms(torch, fn, reps: int, sleep_cycles: int = 5_000_000) -> float:
+def device_ms(torch, fn, reps: int, sleep_cycles: int = 5_000_000,
+              setup=None) -> float:
     """Median device time of ``fn`` over ``reps`` single calls, by CUDA
     events.  A ``torch.cuda._sleep`` of ``sleep_cycles`` ahead of each call
     keeps the card busy while the host enqueues the call, so the events
-    bracket device work only, not host launch gaps."""
+    bracket device work only, not host launch gaps.  ``setup()`` runs
+    before each call, outside the events (an in-place kernel's restore)."""
+    setup = setup or (lambda: None)
+    setup()
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
+        setup()
         torch.cuda._sleep(sleep_cycles)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -367,7 +374,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     logs = build.build_all()
     ptxas = [line.strip() for log in logs.values()
-             for line in log.splitlines() if "registers" in line]
+             for line in log.splitlines()
+             if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {n: build.library_path(n).name
                         for n in build.SIGNATURES}, "ptxas": ptxas})
@@ -381,8 +389,10 @@ def main(argv=None) -> int:
     from repro_torch.graphs.generators import random_sparse, washington_rlg
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import discharge
     from repro_torch.kernels.discharge import (K_DEFAULT,
                                                fused_discharge_batched,
+                                               fused_discharge_batched_,
                                                fused_discharge_batched_plain)
     from repro_torch.kernels.revsearch import bcsr_rev_search, search_steps
     from repro_torch.kernels.segmin import (tile_min_neighbor,
@@ -529,7 +539,25 @@ def main(argv=None) -> int:
     # washington rows of different sizes (padded vertices and arcs) whose
     # last is trivial (s == t), and on a hub of 3000 arcs; the states right
     # after preflow (an all-relabel first cycle), after a global relabel,
-    # and an idle one (no excess)
+    # and an idle one (no excess); both entries, the in-place one with its
+    # gate open (the plain version's state and outputs) and closed (the
+    # state untouched, every output 0), one launch a call
+    def in_place(args, n_b, k, counters, want, what):
+        """The in-place entry on a copy of ``args``' state, against
+        ``want``, the plain version's flattened outputs."""
+        for gate in (True, False):
+            st = [x.clone() for x in args[5:]]
+            before = fused_discharge_batched.launches
+            out = fused_discharge_batched_(
+                *args[:5], *st, n=n_b, k=k, counters=counters,
+                gate=torch.tensor(gate, device=dev))
+            require(fused_discharge_batched.launches == before + 1,
+                    "the in-place entry did not count one launch")
+            out = tuple(out[:2]) + (tuple(out[2]) if counters else ())
+            hold("fused_discharge_batched", (*st, *out), tuple(want) if gate
+                 else tuple(args[5:]) + tuple(map(torch.zeros_like, out)),
+                 f"{what}, in place, gate {'open' if gate else 'closed'}")
+
     def fused_cases(insts, what):
         bg, meta_b, res0_b, triv = batched.pack_instances(insts)
         pre = batched.batched_preflow(bg, meta_b, res0_b)
@@ -549,6 +577,11 @@ def main(argv=None) -> int:
                         got, want = got[:5] + got[5], want[:5] + want[5]
                     hold("fused_discharge_batched", tuple(got), tuple(want),
                          f"{what}, {name}, k={k}, counters={counters}")
+                    require(all(torch.equal(a, b) for a, b in
+                                zip(args[5:], st)),
+                            "the out-of-place entry changed its inputs")
+                    in_place(args, meta_b.n, k, counters, want,
+                             f"{what}, {name}, k={k}, counters={counters}")
                     live, pushed = got[3].tolist(), got[4].tolist()
                     require(all(x == 0 for x, tr in zip(live, triv) if tr),
                             "a trivial lane lived")
@@ -591,9 +624,11 @@ def main(argv=None) -> int:
     got = fused_discharge_batched(*many, n=meta3.n, k=3, counters=True)
     want = fused_discharge_batched_plain(*(x.cpu() for x in many),
                                          n=meta3.n, k=3, counters=True)
-    hold("fused_discharge_batched", tuple(got[:5] + got[5]),
-         tuple(w.to(dev) for w in want[:5] + want[5]),
+    want = tuple(w.to(dev) for w in want[:5] + want[5])
+    hold("fused_discharge_batched", tuple(got[:5] + got[5]), want,
          f"B={3 * reps} rows > {most} resident blocks")
+    in_place(many, meta3.n, 3, True, want,
+             f"B={3 * reps} rows > {most} resident blocks")
     emit({"phase": "kernels_edge_cases", "ok": True, "max_abs_err": errs})
 
     # -- 4. the main path at full size --------------------------------------
@@ -640,7 +675,9 @@ def main(argv=None) -> int:
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     loops = {mode: pr.cycle_loop(g, meta, s, t, mode, cap=1024)
              for mode in ("vc_kernel_bsearch", "vc_fused")}
-    carries = dict.fromkeys(loops, (state, zero))
+    # the fused step updates its carry's state in place: its own copy
+    carries = {"vc_kernel_bsearch": (state, zero),
+               "vc_fused": (pr.PRState(*(x.clone() for x in state)), zero)}
     bbg, bmeta, bres0, _ = batched.pack_instances(
         [(p_.residual("bcsr"), p_.s, p_.t) for p_ in batch])
     bstate = batched.batched_global_relabel(
@@ -659,6 +696,8 @@ def main(argv=None) -> int:
             got, want = got[:5] + got[5], want[:5] + want[5]
         hold("fused_discharge_batched", tuple(got), tuple(want),
              f"batched path, post-relabel, counters={counters}")
+        in_place((*bargs, *bstate), bmeta.n, K_DEFAULT, counters, want,
+                 f"batched path, post-relabel, counters={counters}")
     # the min search at the batched path's shapes, both entries and forms
     bavq = batched.row_avq(batched.active_rows(bstate.h, bstate.e, bmeta.n,
                                                bbg.s, bbg.t))
@@ -682,9 +721,10 @@ def main(argv=None) -> int:
                                     chunk=chunk)
         for mode, (body, cond) in loops.items():
             carries[mode] = engine.run_chunk(body, carries[mode],
-                                             cond_fn=cond, chunk=chunk)
+                                             cond_fn=cond, chunk=chunk,
+                                             pass_gate=mode == "vc_fused")
         b_carry = engine.run_chunk(b_step, b_carry, cond_fn=b_cond,
-                                   chunk=chunk)
+                                   chunk=chunk, pass_gate=True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     require(int(fp_carry[2]) == chunk
@@ -793,9 +833,9 @@ def main(argv=None) -> int:
             shape={"P": n, "pushes": n_push, "steps": steps}),
     }
     # the fused discharge's bytes come from this state's own cycles: the
-    # plain vc_step run K times gives each cycle's active vertices,
-    # frontier arcs and those of them with res > 0, held against the
-    # kernel's counters
+    # plain vc_step run K times gives each cycle's vertices with excess,
+    # active vertices, frontier arcs, those of them with res > 0 and the
+    # distinct heads of those, held against the kernel's counters
     one = torch.ones(1, dtype=torch.int32, device=dev)
     fargs = (one * s, one * t, g.indptr[None], g.heads[None], g.rev[None],
              state.res[None], state.h[None], state.e[None])
@@ -803,46 +843,84 @@ def main(argv=None) -> int:
             fused_discharge_batched(*fargs, n=n, k=K_DEFAULT,
                                     counters=True)[5]]
     f_act, f_push, f_fr, _ = fcnt
-    f_pos, st_c = [], state
+    f_ex, f_pos, f_heads, st_c = [], [], [], state
     for c in range(K_DEFAULT):
         act_c = pr.active_mask(st_c, n, s, t)
         on = act_c[g.tails.long()]
         require(int(act_c.sum()) == f_act[c] and int(on.sum()) == f_fr[c],
                 "the fused counters disagree with the plain cycles")
-        f_pos.append(int((on & (st_c.res > 0)).sum()))
+        ex = st_c.e > 0
+        ex[[s, t]] = False
+        on_pos = on & (st_c.res > 0)
+        f_ex.append(int(ex.sum()))
+        f_pos.append(int(on_pos.sum()))
+        f_heads.append(int(torch.unique(g.heads[on_pos]).numel()))
         st_c = pr.vc_step(g, meta, st_c, s, t)
-    f_pos = np.array(f_pos, np.int64)
+    f_ex, f_pos, f_heads = (np.array(x, np.int64)
+                            for x in (f_ex, f_pos, f_heads))
+    # the in-place launch the drivers make, on its own copy of the state
+    # (restored from ``fargs`` before each call, outside the timed events)
+    # with a loop's scratch and an open gate on the device; and the same
+    # launch on the idle state (no excess), the design's floor
+    fwork = [x.clone() for x in fargs[5:]]
+    fscratch = discharge.discharge_scratch(1, n, K_DEFAULT, dev)
+    gate_open = torch.ones((), dtype=torch.bool, device=dev)
+    idle_state = (*fargs[5:7], torch.zeros_like(fargs[7]))
+
+    def restore(src):
+        for x, y in zip(fwork, src):
+            x.copy_(y)
+
+    def fused_launch():
+        return (*fwork, *fused_discharge_batched_(
+            *fargs[:5], *fwork, n=n, k=K_DEFAULT, gate=gate_open,
+            scratch=fscratch))
+
     cases["fused_discharge_batched"] = dict(
-        kernel=lambda: fused_discharge_batched(*fargs, n=n, k=K_DEFAULT),
+        kernel=fused_launch, setup=lambda: restore(fargs[5:]),
         plain=lambda: fused_discharge_batched_plain(*fargs, n=n,
                                                     k=K_DEFAULT),
-        # per cycle: e and h of every vertex; two indptr words of each
-        # active one; res of each frontier arc, head and the head's height
-        # of each with res > 0; each push's four updates and each
-        # relabel's height
+        # per cycle: e of every vertex and h of each with e > 0 (not s or
+        # t); two indptr words of each active one; res of each frontier
+        # arc, the head of each with res > 0 and each such head's height
+        # once; each push's rev and four updates; each relabel's height
         library=None,
-        bytes=int(K_DEFAULT * 8 * n + 8 * f_act.sum() + 4 * f_fr.sum()
-                  + 8 * f_pos.sum() + 16 * f_push.sum()
-                  + 4 * (f_act - f_push).sum()),
+        bytes=int(K_DEFAULT * 4 * n + 4 * f_ex.sum() + 8 * f_act.sum()
+                  + 4 * f_fr.sum() + 4 * f_pos.sum() + 4 * f_heads.sum()
+                  + 20 * f_push.sum() + 4 * (f_act - f_push).sum()),
         source="discharge",
         shape={"B": 1, "n": n, "A": a, "k": K_DEFAULT,
                "active": f_act.tolist(), "pushes": f_push.tolist(),
                "frontier_arcs": f_fr.tolist(),
+               "excess_vertices": f_ex.tolist(),
                "frontier_arcs_res_pos": f_pos.tolist(),
-               # what the first design moves besides: the snapshot copy,
-               # res/h/e read and written once a cycle
-               "snapshot_bytes": K_DEFAULT * 8 * (a + 2 * n)})
+               "their_heads": f_heads.tolist(),
+               # what the design moves besides, per active vertex and
+               # cycle: its queue slot written once and read twice, its
+               # int2 decision written and read once
+               "queue_and_decision_bytes": int(28 * f_act.sum())})
+    cases["fused_discharge_batched[idle]"] = dict(
+        kernel=fused_launch, setup=lambda: restore(idle_state),
+        plain=lambda: fused_discharge_batched_plain(*fargs[:5], *idle_state,
+                                                    n=n, k=K_DEFAULT),
+        # e of every vertex, read once: no vertex is active, so the state
+        # is a fixpoint
+        library=None, bytes=4 * n, source="discharge",
+        shape={"B": 1, "n": n, "A": a, "k": K_DEFAULT, "active": 0})
     # the least time the CUDA-event pair reports for any launch
     tiny = torch.zeros(1, dtype=torch.int32, device=dev)
     emit({"phase": "timing_floor", "what": "one-element fill_",
           "ms": device_ms(torch, lambda: tiny.fill_(0), REPS)})
     rows_out = []
     for name, c in cases.items():
-        hold(name, c["kernel"](), c["plain"](), "main-path shapes")
+        setup = c.get("setup", lambda: None)
+        kernel = name.split("[idle]")[0]
+        setup()
+        hold(kernel, c["kernel"](), c["plain"](), f"main-path shapes, {name}")
         if name == "bcsr_rev_search":
             hold(name, c["kernel"](), kref.rev_search_ref(push, g.rev, a),
                  "main-path rev table")
-        ms = device_ms(torch, c["kernel"], REPS)
+        ms = device_ms(torch, c["kernel"], REPS, setup=setup)
         plain_ms = device_ms(torch, c["plain"], REPS)
         lib_ms = (device_ms(torch, c["library"], REPS)
                   if c["library"] else None)
@@ -851,6 +929,8 @@ def main(argv=None) -> int:
               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
               "bound_ms": bound_ms, "bytes": c["bytes"],
               "bound_share": bound_ms / ms})
+        if name not in KERNELS:
+            continue
         rows_out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{c['source']}.cu",
@@ -882,18 +962,29 @@ def main(argv=None) -> int:
               unfused_ms / gather_ms})
 
     # -- 7. where a step's time goes: host enqueue, wall, device ---------
+    # every run of a loop starts from the mid-solve state; vc_fused's step
+    # updates its carry in place, so each of its runs takes a copy of its
+    # own, made ahead of the timed window
     loops = {}
     for mode in ("vc_kernel_bsearch", "vc_fused", "vc"):
         body, cond = pr.cycle_loop(g, meta, s, t, mode, cap=2**30)
-        loops[f"cycle[{mode}]"] = (body, cond, (state, zero))
+        if mode == "vc_fused":
+            pool = iter([(pr.PRState(*(x.clone() for x in state)), zero)
+                         for _ in range(13 + REPS)])
+            loops[f"cycle[{mode}]"] = (body, cond, pool.__next__, True)
+        else:
+            loops[f"cycle[{mode}]"] = (body, cond, lambda: (state, zero),
+                                       False)
     for name, fn in (("sweep[kernel]", minh_fn), ("sweep[plain]", None)):
         sweep, dist0 = globalrelabel.distance_sweep(g, meta, state.res, t, fn)
-        loops[name] = engine.fixpoint_loop(sweep, dist0, cap=2**30)
+        step, cond, carry = engine.fixpoint_loop(sweep, dist0, cap=2**30)
+        loops[name] = (step, cond, lambda carry=carry: carry, False)
     chunk = engine.DEFAULT_CHUNK
     timed = []
-    for name, (step, cond, carry) in loops.items():
-        def run(step=step, cond=cond, carry=carry):
-            return engine.run_chunk(step, carry, cond_fn=cond, chunk=chunk)
+    for name, (step, cond, carry, gated) in loops.items():
+        def run(step=step, cond=cond, carry=carry, gated=gated):
+            return engine.run_chunk(step, carry(), cond_fn=cond, chunk=chunk,
+                                    pass_gate=gated)
 
         run()
         torch.cuda.synchronize()

@@ -397,7 +397,8 @@ def batched_run_cycles(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
     steps_bound = -(-max_cycles // pr.cycles_per_step(mode, max_cycles))
     out = engine.run_bulk_loop(step, init, cond_fn=cond,
                                chunk=engine.normalize_chunk(chunk,
-                                                            steps_bound))
+                                                            steps_bound),
+                               pass_gate=mode == "vc_fused")
     if telemetry:
         return out[0], out[3], out[5]
     return out[0], out[3]
@@ -408,7 +409,11 @@ def batched_cycle_loop(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
                        telemetry: bool = False, budget: int | None = None):
     """The ``(step_fn, cond_fn, carry)`` of :func:`batched_run_cycles`'s
     loop over ``(state, nact, cycle, cycles (B,), pushed[, telemetry])``
-    carries, for ``engine.run_bulk_loop`` / ``engine.run_chunk``."""
+    carries, for ``engine.run_bulk_loop`` / ``engine.run_chunk``.
+
+    ``vc_fused``'s step is ``step_fn(carry, gate)`` (the engine's
+    ``pass_gate=True``): its kernel updates the carry's state in place
+    under the gate, so the carry starts from a clone of ``state``."""
     _check_mode(mode)
     if mode == "vc_kernel_bsearch" and meta.layout != "batched-bcsr":
         # guard at the shared depth: every entry path passes through here,
@@ -435,19 +440,21 @@ def batched_cycle_loop(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
     if mode == "vc_fused":
         from repro_torch.kernels import discharge
 
-        def step(state, nact):
-            out = discharge.fused_discharge_batched(
+        state = BatchedPRState(*(x.clone() for x in state))
+        scratch = discharge.discharge_scratch(bg.batch, n, kk, dev)
+
+        def step(state, nact, gate):
+            out = discharge.fused_discharge_batched_(
                 bg.s, bg.t, bg.indptr, bg.heads, bg.rev, *state, n=n, k=kk,
-                counters=telemetry)
+                gate=gate, scratch=scratch, counters=telemetry)
             inc = None
             if telemetry:
-                acts, pushs, frs, _ = out[5]
+                acts, pushs, frs, _ = out[2]
                 a_tot = acts.sum(dim=1, dtype=_I32)
                 p_tot = pushs.sum(dim=1, dtype=_I32)
                 inc = (p_tot, a_tot - p_tot, a_tot,
                        frs.sum(dim=1, dtype=_I32))
-            return (BatchedPRState(*out[:3]), kk, out[3],
-                    torch.any(out[4] > 0), inc)
+            return state, kk, out[0], torch.any(out[1] > 0), inc
     else:
         def step(state, nact):
             new = _kernel_batch_step(bg, meta, state, mode, flat)
@@ -457,9 +464,9 @@ def batched_cycle_loop(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
         nact, cycle, pushed = carry[1], carry[2], carry[4]
         return (cycle < cap) & torch.any(nact > 0) & pushed
 
-    def body(carry):
+    def body(carry, *gate):
         state, nact, cycle, cycles_per, _ = carry[:5]
-        new_state, spent, live, pushed, inc = step(state, nact)
+        new_state, spent, live, pushed, inc = step(state, nact, *gate)
         if pushed is None:  # any excess moved this (single) cycle?
             pushed = torch.any(new_state.e != state.e)
         out = (new_state, nact_of(new_state), cycle + spent,

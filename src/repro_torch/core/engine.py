@@ -20,7 +20,15 @@ counts, and exact ``max_cycles`` budgets, therefore match the reference.
 Carry contract: the carry is a (named) tuple tree of tensors, ``None``
 leaves riding along untouched.  ``cond_fn(carry)`` returns a 0-d bool
 tensor computed from the carry alone; ``step_fn(carry)`` keeps the tree
-structure, shapes and dtypes.
+structure, shapes and dtypes.  A step may update a carry leaf in place
+and return that same tensor; the gate then leaves it as it is
+(``torch.where(live, x, x)`` is ``x``), so such a step must itself leave
+the leaf unchanged wherever the gate is closed.  It learns the gate from
+the engine: with ``pass_gate=True`` the engine calls ``step_fn(carry,
+live)``, ``live`` the 0-d condition it has just computed for this step
+(the ``vc_fused`` cycle loops, whose kernel updates the solver state in
+place under that gate).  Every other loop keeps ``step_fn(carry)`` and
+its out-of-place steps.
 
 ``minh_fn`` contract: the segmented-min hot spot of every sweep family is
 pluggable (``resolve_minh_fn``): ``None`` selects the plain PyTorch path
@@ -53,39 +61,53 @@ def normalize_chunk(chunk: int | None, budget: int | None = None) -> int:
 
 
 def _gate(live: torch.Tensor, new: Any, old: Any) -> Any:
-    """Whole-carry select: keep ``new`` where ``live``, else ``old``."""
-    if new is None:
-        return None
+    """Whole-carry select: keep ``new`` where ``live``, else ``old``.  A
+    leaf the step returned as it was given (updated in place) is kept
+    without a select."""
+    if new is None or new is old:
+        return new
     if isinstance(new, torch.Tensor):
         return torch.where(live, new, old)
     items = [_gate(live, a, b) for a, b in zip(new, old)]
     return type(new)(*items) if hasattr(new, "_fields") else type(new)(items)
 
 
-def run_chunk(step_fn: Callable[[Any], Any], carry: Any, *,
-              cond_fn: Callable[[Any], torch.Tensor], chunk: int) -> Any:
+def _step(step_fn: Callable, carry: Any, live: torch.Tensor,
+          pass_gate: bool) -> Any:
+    return step_fn(carry, live) if pass_gate else step_fn(carry)
+
+
+def run_chunk(step_fn: Callable, carry: Any, *,
+              cond_fn: Callable[[Any], torch.Tensor], chunk: int,
+              pass_gate: bool = False) -> Any:
     """``chunk`` gated steps with no host read: each step keeps the old
-    carry wherever ``cond_fn`` has gone false."""
+    carry wherever ``cond_fn`` has gone false (``pass_gate``: the step
+    gets that condition as its gate, see the module docstring)."""
     for _ in range(chunk):
-        carry = _gate(cond_fn(carry), step_fn(carry), carry)
+        live = cond_fn(carry)
+        carry = _gate(live, _step(step_fn, carry, live, pass_gate), carry)
     return carry
 
 
-def run_bulk_loop(step_fn: Callable[[Any], Any], carry: Any, *,
+def run_bulk_loop(step_fn: Callable, carry: Any, *,
                   cond_fn: Callable[[Any], torch.Tensor],
-                  chunk: int | None = None) -> Any:
+                  chunk: int | None = None, pass_gate: bool = False) -> Any:
     """Iterate ``carry = step_fn(carry)`` while ``cond_fn(carry)``, in
     chunks of ``chunk`` gated steps (:func:`run_chunk`) with one host read
     of the condition per chunk.  Semantically identical to a per-step
     while loop (see the module docstring).  Returns the final carry."""
     chunk = normalize_chunk(chunk)
-    while bool(cond_fn(carry)):  # the one host read per chunk
+    while True:
+        live = cond_fn(carry)
+        if not bool(live):  # the one host read per chunk
+            return carry
         if chunk == 1:
-            # the outer check already guards this step exactly
-            carry = step_fn(carry)
+            # the outer check already guards this step exactly: its gate
+            # is open
+            carry = _step(step_fn, carry, live, pass_gate)
         else:
-            carry = run_chunk(step_fn, carry, cond_fn=cond_fn, chunk=chunk)
-    return carry
+            carry = run_chunk(step_fn, carry, cond_fn=cond_fn, chunk=chunk,
+                              pass_gate=pass_gate)
 
 
 def fill_at(x: torch.Tensor, i: int, value) -> torch.Tensor:

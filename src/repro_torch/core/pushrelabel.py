@@ -271,19 +271,25 @@ def _advance_fn(g: DeviceGraph, meta: GraphMeta, s: int, t: int, mode: str,
     """``advance(state) -> (state, live cycles, counts)``: one engine
     step of ``mode``.  ``counts`` (``telemetry`` only, else ``None``) are
     the step's per-cycle ``(active, pushes, frontier, maxdeg)`` as
-    ``(kk,)`` int32 tensors."""
+    ``(kk,)`` int32 tensors.  ``vc_fused``'s is ``advance(state, gate)``:
+    it updates ``state`` in place under the engine's 0-d ``gate`` and
+    returns it."""
     if mode == "vc_fused":
         from repro_torch.kernels import discharge
 
-        # loop-invariant launch inputs, built once
-        s_b, t_b = (torch.full((1,), x, dtype=_I32, device=g.indptr.device)
+        # loop-invariant launch inputs and scratch, built once
+        dev = g.indptr.device
+        s_b, t_b = (torch.full((1,), x, dtype=_I32, device=dev)
                     for x in (s, t))
+        rows = (g.indptr[None], g.heads[None], g.rev[None])
+        scratch = discharge.discharge_scratch(1, meta.n, kk, dev)
 
-        def advance(state):
-            out = discharge.fused_discharge(g, meta, state, s_b, t_b, k=kk,
-                                            counters=telemetry)
-            return (PRState(*out[:3]), out[3],
-                    out[5] if telemetry else None)
+        def advance(state, gate):
+            out = discharge.fused_discharge_batched_(
+                s_b, t_b, *rows, *(x[None] for x in state), n=meta.n, k=kk,
+                gate=gate, scratch=scratch, counters=telemetry)
+            return (state, out[0][0],
+                    tuple(c[0] for c in out[2]) if telemetry else None)
 
         return advance
     step = _make_step(mode)
@@ -307,7 +313,11 @@ def cycle_loop(g: DeviceGraph, meta: GraphMeta, s: int, t: int,
     engine step of ``mode`` — one cycle, or K for ``vc_fused`` — while a
     vertex is active and fewer than ``cap`` cycles ran.  ``max_cycles``
     (default ``cap``) sizes K and the telemetry histories, which hold
-    ``max_cycles`` slots, plus K for ``vc_fused``."""
+    ``max_cycles`` slots, plus K for ``vc_fused``.
+
+    ``vc_fused``'s step is ``step_fn(carry, gate)`` (run it with the
+    engine's ``pass_gate=True``): it updates the carry's state tensors in
+    place under the gate, so its carry must own them."""
     max_cycles = cap if max_cycles is None else max_cycles
     kk = cycles_per_step(mode, max_cycles)
     advance = _advance_fn(g, meta, s, t, mode, kk, telemetry)
@@ -320,9 +330,9 @@ def cycle_loop(g: DeviceGraph, meta: GraphMeta, s: int, t: int,
         state, cycle = carry[0], carry[1]
         return (cycle < cap) & torch.any(active_mask(state, meta.n, s, t))
 
-    def body(carry):
+    def body(carry, *gate):
         state, cycle = carry[0], carry[1]
-        new, live, cnt = advance(state)
+        new, live, cnt = advance(state, *gate)
         if not telemetry:
             return new, cycle + live
         tel = carry[2]
@@ -360,6 +370,8 @@ def run_cycles(g: DeviceGraph, meta: GraphMeta, state: PRState, s: int, t: int,
     discharge kernel executing up to ``K_DEFAULT`` whole cycles; the
     kernel's live-cycle count keeps ``cycles`` the unfused loop's (the
     budget may overshoot by at most K-1 when it is not a multiple of K).
+    The kernel updates the loop's state in place, so the loop starts from
+    a clone of ``state``: the caller's tensors stay as they are.
 
     ``telemetry=True`` carries the workload counters of
     ``repro_torch.obs.solvercounters`` in the loop and returns a third
@@ -372,14 +384,18 @@ def run_cycles(g: DeviceGraph, meta: GraphMeta, state: PRState, s: int, t: int,
     body, cond = cycle_loop(g, meta, s, t, mode, cap, telemetry=telemetry,
                             max_cycles=max_cycles)
     dev = state.res.device
+    fused = mode == "vc_fused"
+    if fused:
+        state = PRState(*(x.clone() for x in state))
     carry = (state, torch.zeros((), dtype=_I32, device=dev))
     if telemetry:
-        hist = max_cycles + (kk if mode == "vc_fused" else 0)
+        hist = max_cycles + (kk if fused else 0)
         carry += (sc.telemetry_init(hist=hist, device=dev),)
     steps_bound = -(-max_cycles // kk)  # K cycles per engine step
     return engine.run_bulk_loop(body, carry, cond_fn=cond,
                                 chunk=engine.normalize_chunk(chunk,
-                                                             steps_bound))
+                                                             steps_bound),
+                                pass_gate=fused)
 
 
 def _empty_hist() -> np.ndarray:

@@ -56,9 +56,9 @@ SIGNATURES = {
     },
     # arcs, indptr, heads, tails, out, batch, p, n, a, steps, stream
     "revsearch": {"bcsr_rev_search_launch": (_P,) * 5 + (_I,) * 5 + (_P,)},
-    # s, t, indptr, heads, rev, res/h/e in, res/h/e out, live, pushed,
-    # cnt, res/h/e snapshots, batch, n, a, k, stream
-    "discharge": {"fused_discharge_launch": (_P,) * 17 + (_I,) * 4 + (_P,)},
+    # s, t, indptr, heads, rev, res, h, e (in place), gate|NULL, queue,
+    # decisions, live, pushed, cnt, batch, n, a, k, stream
+    "discharge": {"fused_discharge_launch": (_P,) * 14 + (_I,) * 4 + (_P,)},
 }
 
 _lock = threading.Lock()

@@ -1,43 +1,72 @@
 // fused_discharge_batched: k whole vc_step cycles of push-relabel per
-// launch, for B instances at once.
+// launch, for B instances at once, in place under a device gate.
 //
 // Replaces the Pallas TPU kernel repro/kernels/discharge.py
-// (fused_discharge_batched, body _kernel).  Contract, bit for bit: each
-// cycle snapshots res/h/e; an active vertex u (e > 0, h < n, u not s or t)
-// finds the minimum snapshot height over its residual arcs (res > 0) and
-// the smallest arc attaining it; if that height is below h[u] it pushes
-// d = min(e[u], res[arc]) along the arc (res[arc] -= d, res[rev[arc]] += d,
-// e[u] -= d, e[head] += d), else it relabels h[u] to min + 1, or to n
-// when it has no residual arc.  Outputs: the new res/h/e, live[b] = the
-// cycles that began with an active vertex, pushed[b] = 1 iff any cycle
-// pushed, and per (b, cycle) the active, push, frontier-arc and max
-// active degree counts (zero once an instance has converged).
+// (fused_discharge_batched, body _kernel).  Contract, bit for bit: in
+// each cycle an active vertex u (e > 0, h < n, u not s or t) finds the
+// minimum height over its residual arcs (res > 0) in the state the cycle
+// started from, and the smallest arc attaining it; if that height is
+// below h[u] it pushes d = min(e[u], res[arc]) along the arc (res[arc] -=
+// d, res[rev[arc]] += d, e[u] -= d, e[head] += d), else it relabels h[u]
+// to min + 1, or to n when it has no residual arc.  res/h/e are updated
+// in place, as the TPU kernel does under input/output aliasing.  Outputs:
+// live[b] = the cycles that began with an active vertex, pushed[b] = 1
+// iff any cycle pushed, and per (b, cycle) the active, push, frontier-arc
+// and max active degree counts (zero once an instance has converged).
+// A 0-d gate on the device (NULL = open) is read at entry: closed, every
+// block returns before the first grid barrier, res/h/e stay as they are
+// and the outputs are 0, which is what the solver's loop needs of a step
+// whose condition has gone false.
 //
-// Bound on an H100 (3.35 TB/s): memory.  Per cycle the work must read
-// e, h and indptr of every vertex, 12 bytes per frontier arc (head, res,
-// the head's height) and write each push's four updates and each
-// relabel's height.  This first design also copies the whole state into
-// the snapshot every cycle (8 bytes per arc and per vertex read and
-// written), which is more than the work needs.
+// Bound on an H100 (3.35 TB/s): memory.  Per cycle the work must read e
+// of every vertex and h of each with e > 0 (membership needs it only
+// there), two indptr words of each active one, res of each frontier arc,
+// the head of each with res > 0 and the height of each distinct such head
+// once, and for each push rev of its arc and its four updates, for each
+// relabel its height.
 //
-// Design: the TPU kernel walks the vertices in order inside one program
-// per instance and keeps the snapshot in VMEM.  Here one cooperative
-// launch holds every block resident (grid (CTAs per instance, rows at a
-// time), sized from the occupancy calculator; a batch with more rows than
-// resident blocks runs its rows in rounds) and a grid-wide barrier
-// separates the phases of each cycle: (1) copy the current state into
-// the snapshot scratch, barrier, (2) vertex pass, barrier.  In the vertex pass each
-// warp takes 32 consecutive vertices, one a lane, and ballots which are
-// active; for each active one the whole warp strides its segment, keyed
-// by the snapshot (res_old > 0 ? h_old[head] : INF), and keeps the
-// minimum of a packed 64-bit (biased key << 32 | arc): the unsigned
-// minimum is the smallest key and, among equal keys, the smallest arc,
-// the reference's tie-break.  Lane 0 applies the push with atomic adds
-// through the rev table, or writes h[u], which only u's owner writes.
-// Integer adds commute, so the result is exact whatever the order.
-// Counters go to shared memory, then once per block to global memory.
-// Inputs are never written: the solver's loop keeps the old state where
-// its gate has closed, so the wrapper allocates the outputs.
+// Design.  A direct translation of the TPU kernel copies the whole state
+// into a snapshot every cycle (8 (A + 2n) bytes, 67 MB a cycle at a
+// million vertices), writes new outputs that the solver's gate then
+// selects against the old state, and has each warp serve the active
+// vertices among its own 32 consecutive ones, so the warp with the most
+// sets every cycle's length.
+// Here a cycle is three phases of one cooperative launch, a grid-wide
+// barrier between them:
+//   1. compact: each warp loads e of 4 x 32 vertices (h only where e > 0),
+//      ballots the active ones and appends them to the row's active-vertex
+//      queue (AVQ) with one atomicAdd a warp;
+//   2. decide: tiles of kTile threads (cg::tiled_partition) take queue
+//      entries grid-stride, stride the entry's segment for the packed
+//      minimum of (key << 32 | arc) (the unsigned minimum is the smallest
+//      key, then the smallest arc: the reference's tie-break), and write
+//      the decision into the entry's slot: (arc, d) for a push, (-1, new
+//      height) for a relabel.  Nothing writes res/h/e in this phase, so the
+//      live state is the cycle's snapshot and no copy is made;
+//   3. apply: one thread a queue slot adds d through rev with atomics
+//      (integer adds commute, so the result is exact in any order) or
+//      stores the new height, which only the vertex's slot writes.
+// The work of a cycle is then spread over the grid by queue entry, not by
+// where the active vertices lie.  Phase 3 of a cycle and phase 1 of the
+// next keep their barrier: whether a vertex's excess passes through 0
+// during the adds depends on their order, so membership cannot be decided
+// from an atomic's return value.  A cycle takes 3 barriers, a launch
+// 3k - 1.  A row whose queue is empty is a fixpoint: its later cycles
+// skip their work and only cross the barriers.
+// The grid is (blocks per row, rows at a time): at most kBlocksPerSm
+// blocks of kThreads on each SM, and no more blocks per row than cover
+// its vertices once in phase 1.  Barrier time grows with the number of
+// blocks and phase 1 wants many loads in flight, so the default is one
+// block of 1024 threads a SM (132 blocks, 32 warps a SM), and the decide
+// tile is 8 wide (an active vertex has some 6.6 arcs on the main path).
+// tools/discharge_sweep.py times builds with other values of kTile,
+// kThreads and kBlocksPerSm.  A batch with more rows than resident blocks
+// runs its rows in rounds, every block crossing the same barriers.  Per row the scratch holds four
+// accumulators (queue length, pushes, frontier, max degree) ahead of the
+// queue, and one int2 decision a queue slot; the kernel allocates
+// nothing, and the row's first block returns the accumulators to 0 once
+// it has read them, so a scratch that starts zeroed stays so between
+// launches.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,26 +76,31 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kInf = 1 << 30;
-constexpr int kThreads = 256;
+constexpr int kTile = 8;          // threads deciding one queue entry
+constexpr int kThreads = 1024;    // threads a block
+constexpr int kBlocksPerSm = 1;   // most blocks resident on a SM
+constexpr int kVerts = 4;  // vertices a lane takes per step of phase 1
+constexpr int kAcc = 4;    // accumulators ahead of each row's queue
+constexpr unsigned kFull = 0xffffffffu;
+
+static_assert(kTile == 8 || kTile == 16 || kTile == 32, "tile of 8/16/32");
+static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps");
 
 struct Params {
   const int* s;
   const int* t;
-  const int* indptr;  // (batch, n + 1)
-  const int* heads;   // (batch, a)
-  const int* rev;     // (batch, a)
-  const int* res_in;  // (batch, a)
-  const int* h_in;    // (batch, n)
-  const int* e_in;    // (batch, n)
-  int* res;           // outputs, same shapes as the inputs
-  int* h;
-  int* e;
-  int* live;          // (batch,)
-  int* pushed;        // (batch,)
-  int* cnt;           // (4, batch, k): active, pushes, frontier, maxdeg
-  int* res_old;       // snapshot scratch, same shapes as res/h/e
-  int* h_old;
-  int* e_old;
+  const int* indptr;         // (batch, n + 1)
+  const int* heads;          // (batch, a)
+  const int* rev;            // (batch, a)
+  int* res;                  // (batch, a), updated in place
+  int* h;                    // (batch, n), updated in place
+  int* e;                    // (batch, n), updated in place
+  const unsigned char* gate; // 0-d bool, NULL = open
+  int* queue;                // (batch, kAcc + n): accumulators, then AVQ
+  int2* dec;                 // (batch, n): a decision per queue slot
+  int* live;                 // (batch,)
+  int* pushed;               // (batch,)
+  int* cnt;                  // (4, batch, k): active, pushes, frontier, maxdeg
   int batch, n, a, k;
 };
 
@@ -78,16 +112,33 @@ __device__ __forceinline__ unsigned long long pack(int key, int arc) {
 
 __global__ void __launch_bounds__(kThreads)
 fused_discharge_kernel(Params p) {
+  const int rounds = (p.batch + gridDim.y - 1) / gridDim.y;
+  const long long plane = static_cast<long long>(p.batch) * p.k;
+  if (p.gate != nullptr && *p.gate == 0) {
+    // closed gate: the same byte for every block, so none reaches a barrier
+    for (int r = 0; blockIdx.x == 0 && r < rounds; ++r) {
+      const int b = r * gridDim.y + blockIdx.y;
+      if (b >= p.batch) break;
+      for (int i = threadIdx.x; i < 4 * p.k; i += blockDim.x) {
+        p.cnt[(i / p.k) * plane + static_cast<long long>(b) * p.k +
+              i % p.k] = 0;
+      }
+      if (threadIdx.x == 0) p.live[b] = p.pushed[b] = 0;
+    }
+    return;
+  }
   cg::grid_group grid = cg::this_grid();
+  cg::thread_block_tile<kTile> tile =
+      cg::tiled_partition<kTile>(cg::this_thread_block());
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nthreads = gridDim.x * blockDim.x;
   const int lane = threadIdx.x & 31;
   const int warp = tid >> 5;
   const int nwarps = nthreads >> 5;
-  __shared__ int blk[4];
-  // rows stride over grid.y: every block runs the same number of rounds
-  // (and so of grid barriers), a block past the last row idling in them
-  const int rounds = (p.batch + gridDim.y - 1) / gridDim.y;
+  const int tile_id = tid / kTile;
+  const int ntiles = nthreads / kTile;
+  const bool leader = blockIdx.x == 0 && threadIdx.x == 0;  // of the row
+  __shared__ int blk[3];  // this block's pushes, frontier, max degree
 
   for (int r = 0; r < rounds; ++r) {
     const int b = r * gridDim.y + blockIdx.y;
@@ -102,130 +153,136 @@ fused_discharge_kernel(Params p) {
     int* res = p.res + ao;
     int* h = p.h + vo;
     int* e = p.e + vo;
-    int* res_old = p.res_old + ao;
-    int* h_old = p.h_old + vo;
-    int* e_old = p.e_old + vo;
+    int* acc = p.queue + bb * (kAcc + p.n);
+    int* q = acc + kAcc;
+    int2* dec = p.dec + vo;
+    bool done = !row;  // a row with an empty queue is a fixpoint
+    int live = 0, any_push = 0;  // kept by the leader
 
     for (int c = 0; c < p.k; ++c) {
-      // 1. snapshot the state the cycle starts from; the first cycle also
-      //    initialises the outputs from the inputs and zeroes the counters
-      if (row) {
-        const int* rsrc = c == 0 ? p.res_in + ao : res;
-        const int* hsrc = c == 0 ? p.h_in + vo : h;
-        const int* esrc = c == 0 ? p.e_in + vo : e;
-        for (int i = tid; i < p.a; i += nthreads) {
-          const int v = rsrc[i];
-          res_old[i] = v;
-          if (c == 0) res[i] = v;
+      // 1. compact the active vertices into the queue
+      if (threadIdx.x < 3) blk[threadIdx.x] = 0;
+      for (int base = warp * 32 * kVerts; !done && base < p.n;
+           base += nwarps * 32 * kVerts) {
+        int ev[kVerts];
+#pragma unroll
+        for (int j = 0; j < kVerts; ++j) {
+          const int u = base + 32 * j + lane;
+          ev[j] = u < p.n ? e[u] : 0;
         }
-        for (int i = tid; i < p.n; i += nthreads) {
-          const int hv = hsrc[i], ev = esrc[i];
-          h_old[i] = hv;
-          e_old[i] = ev;
-          if (c == 0) {
-            h[i] = hv;
-            e[i] = ev;
-          }
+        unsigned m[kVerts];
+        int total = 0;
+#pragma unroll
+        for (int j = 0; j < kVerts; ++j) {
+          const int u = base + 32 * j + lane;
+          m[j] = __ballot_sync(kFull,
+                               ev[j] > 0 && u != s && u != t && h[u] < p.n);
+          total += __popc(m[j]);
         }
-        if (c == 0 && blockIdx.x == 0) {
-          for (int i = threadIdx.x; i < 4 * p.k; i += blockDim.x) {
-            p.cnt[(static_cast<long long>(i / p.k) * p.batch + b) * p.k +
-                  i % p.k] = 0;
+        if (total == 0) continue;  // uniform across the warp
+        int slot = 0;
+        if (lane == 0) slot = atomicAdd(&acc[0], total);
+        slot = __shfl_sync(kFull, slot, 0);
+        const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+        for (int j = 0; j < kVerts; ++j) {
+          if ((m[j] >> lane) & 1u) {
+            q[slot + __popc(m[j] & below)] = base + 32 * j + lane;
           }
+          slot += __popc(m[j]);
         }
       }
-      if (threadIdx.x < 4) blk[threadIdx.x] = 0;
       grid.sync();
 
-      // 2. vertex pass: decisions read the snapshot, updates go to res/h/e
-      int n_act = 0, n_push = 0, fr = 0, md = 0;  // kept by lane 0
-      for (int base = warp * 32; row && base < p.n; base += nwarps * 32) {
-        const int u = base + lane;
-        const bool active = u < p.n && e_old[u] > 0 && h_old[u] < p.n &&
-                            u != s && u != t;
-        unsigned mask = __ballot_sync(0xffffffffu, active);
-        while (mask) {  // uniform across the warp
-          const int v = base + __ffs(mask) - 1;
-          mask &= mask - 1;
-          const int start = ip[v], end = ip[v + 1];
-          unsigned long long best = pack(kInf, p.a);
-          for (int i = start + lane; i < end; i += 32) {
-            best = min(best, pack(res_old[i] > 0 ? h_old[hd[i]] : kInf, i));
-          }
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            best = min(best, __shfl_down_sync(0xffffffffu, best, off));
-          }
-          if (lane == 0) {
-            const int m = static_cast<int>(
-                static_cast<unsigned>(best >> 32) ^ 0x80000000u);
-            const int arg = static_cast<int>(best & 0xffffffffu);
-            const bool can = m < kInf;
-            const bool push = can && h_old[v] > m;
-            if (push) {
-              const int d = min(e_old[v], res_old[arg]);
-              atomicAdd(&res[arg], -d);
-              atomicAdd(&res[rv[arg]], d);
-              atomicAdd(&e[v], -d);
-              atomicAdd(&e[hd[arg]], d);
-            } else {
-              h[v] = can ? m + 1 : p.n;  // dead end -> deactivate
-            }
-            n_act += 1;
-            n_push += push;
-            fr += end - start;
-            md = max(md, end - start);
-          }
+      // 2. decide each queue entry against the unchanged state
+      const int qlen = row ? acc[0] : 0;
+      done = qlen == 0;
+      for (int i = tile_id; i < qlen; i += ntiles) {
+        const int u = q[i];
+        const int start = __ldg(ip + u), end = __ldg(ip + u + 1);
+        const int hu = h[u], eu = e[u];
+        unsigned long long best = pack(kInf, p.a);
+        for (int j = start + static_cast<int>(tile.thread_rank()); j < end;
+             j += kTile) {
+          const int rj = res[j], head = __ldg(hd + j);
+          best = min(best, pack(rj > 0 ? h[head] : kInf, j));
         }
-      }
-      if (lane == 0 && n_act > 0) {
-        atomicAdd(&blk[0], n_act);
-        atomicAdd(&blk[1], n_push);
-        atomicAdd(&blk[2], fr);
-        atomicMax(&blk[3], md);
+#pragma unroll
+        for (int off = kTile / 2; off > 0; off >>= 1) {
+          best = min(best, tile.shfl_down(best, off));
+        }
+        if (tile.thread_rank() == 0) {
+          const int m = static_cast<int>(
+              static_cast<unsigned>(best >> 32) ^ 0x80000000u);
+          const int arg = static_cast<int>(best & 0xffffffffu);
+          const bool can = m < kInf;
+          if (can && hu > m) {
+            dec[i] = make_int2(arg, min(eu, res[arg]));
+            atomicAdd(&blk[0], 1);
+          } else {
+            dec[i] = make_int2(-1, can ? m + 1 : p.n);  // dead end -> n
+          }
+          atomicAdd(&blk[1], end - start);
+          atomicMax(&blk[2], end - start);
+        }
       }
       __syncthreads();
-      if (threadIdx.x == 0 && blk[0] > 0) {
-        int* slot = p.cnt + static_cast<long long>(b) * p.k + c;
-        const long long plane = static_cast<long long>(p.batch) * p.k;
-        atomicAdd(slot, blk[0]);
-        atomicAdd(slot + plane, blk[1]);
-        atomicAdd(slot + 2 * plane, blk[2]);
-        atomicMax(slot + 3 * plane, blk[3]);
+      if (threadIdx.x == 0 && qlen > 0) {
+        if (blk[0] > 0) atomicAdd(&acc[1], blk[0]);
+        if (blk[1] > 0) atomicAdd(&acc[2], blk[1]);
+        if (blk[2] > 0) atomicMax(&acc[3], blk[2]);
       }
       grid.sync();
-    }
 
-    // 3. live cycles and the any-push flag, from the per-cycle counts
-    if (row && blockIdx.x == 0 && threadIdx.x == 0) {
-      const int* act = p.cnt + static_cast<long long>(b) * p.k;
-      const int* psh = act + static_cast<long long>(p.batch) * p.k;
-      int live = 0, any = 0;
-      for (int c = 0; c < p.k; ++c) {
-        live += act[c] > 0;
-        any |= psh[c] > 0;
+      // 3. apply: pushes through rev by atomic adds, relabels by store
+      for (int i = tid; i < qlen; i += nthreads) {
+        const int u = q[i];
+        const int2 d = dec[i];
+        if (d.x >= 0) {
+          atomicAdd(&res[d.x], -d.y);
+          atomicAdd(&res[__ldg(rv + d.x)], d.y);
+          atomicAdd(&e[u], -d.y);
+          atomicAdd(&e[__ldg(hd + d.x)], d.y);
+        } else {
+          h[u] = d.y;
+        }
       }
+      if (leader && row) {
+        // every block read the accumulators before the last barrier
+        const int pushes = acc[1];
+        int* slot = p.cnt + bb * p.k + c;
+        slot[0] = qlen;
+        slot[plane] = pushes;
+        slot[2 * plane] = acc[2];
+        slot[3 * plane] = acc[3];
+        acc[0] = acc[1] = acc[2] = acc[3] = 0;
+        live += qlen > 0;
+        any_push |= pushes > 0;
+      }
+      if (c + 1 < p.k) grid.sync();
+    }
+    if (leader && row) {
       p.live[b] = live;
-      p.pushed[b] = any;
+      p.pushed[b] = any_push;
     }
   }
 }
 
 }  // namespace
 
-// All arrays int32, contiguous, on the current device; shapes as in
-// Params.  One cooperative launch on `stream`: every block must be
-// resident at once, so the grid is (x, y) with y = min(batch, resident
-// blocks) rows at a time (more rows take further rounds) and x =
-// min(resident / y, blocks that cover n).  Returns the launch's
-// cudaError_t (a refused cooperative launch included), else
+// All arrays int32 (gate: one byte, or NULL for an open gate), contiguous,
+// on the current device; shapes as in Params.  One cooperative launch on
+// `stream`: every block must be resident at once, so the grid is (x, y)
+// with y = min(batch, resident blocks) rows at a time (more rows take
+// further rounds) and x = min(resident / y, blocks that cover n in phase
+// 1), resident = min(occupancy, kBlocksPerSm) blocks a SM.  Returns the
+// launch's cudaError_t (a refused cooperative launch included), else
 // cudaGetLastError().
 extern "C" int fused_discharge_launch(
     const int* s, const int* t, const int* indptr, const int* heads,
-    const int* rev, const int* res_in, const int* h_in, const int* e_in,
-    int* res, int* h, int* e, int* live, int* pushed, int* cnt,
-    int* res_old, int* h_old, int* e_old, int batch, int n, int a, int k,
-    void* stream) {
+    const int* rev, int* res, int* h, int* e, const unsigned char* gate,
+    int* queue, int* dec, int* live, int* pushed, int* cnt, int batch, int n,
+    int a, int k, void* stream) {
   if (batch <= 0 || k <= 0 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -243,18 +300,19 @@ extern "C" int fused_discharge_launch(
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  if (per_sm > kBlocksPerSm) per_sm = kBlocksPerSm;
   const long long resident = static_cast<long long>(per_sm) * sms;
   if (resident < 1) {
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   }
   const int y = static_cast<int>(batch < resident ? batch : resident);
-  const long long cover = (static_cast<long long>(n) + kThreads - 1) /
-                          kThreads;
+  const long long cover = (static_cast<long long>(n) + kThreads * kVerts - 1)
+                          / (kThreads * kVerts);
   const int x = static_cast<int>(
       resident / y < cover ? resident / y : cover);
-  Params p{s,     t,      indptr,  heads, rev,   res_in, h_in, e_in,
-           res,   h,      e,       live,  pushed, cnt,   res_old,
-           h_old, e_old,  batch,   n,     a,     k};
+  Params p{s,     t,     indptr, heads, rev,   res,   h,     e,
+           gate,  queue, reinterpret_cast<int2*>(dec), live, pushed, cnt,
+           batch, n,     a,      k};
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(fused_discharge_kernel), dim3(x, y),

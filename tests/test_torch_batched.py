@@ -211,3 +211,37 @@ def test_batched_refusals():
         tb.pack_instances([], device="cpu")
     assert tb.round_up_pow2(5) == 8 and tb.round_up_pow2(0, lo=2) == 2
     assert tpr.PORTED_MODES == MODES
+
+
+@pytest.mark.parametrize("scan_chunk", [1, 3, 4])
+def test_batched_vc_fused_chunks_match_jax_fused_driver(scan_chunk,
+                                                        monkeypatch):
+    """The batched in-place ``vc_fused`` loop at engine chunks of 1, 3 and
+    4 with a cadence of 12 (no multiple of K = 8): the gate closes in the
+    middle of chunks, and the result equals the JAX driver's with its
+    kernel emulated."""
+    js, ts, _ = _instances(4, "bcsr", k=3, trivial=True)
+    with jax_kernels_emulated(monkeypatch):
+        want = jb.batched_solve_impl(list(js), mode="vc_fused",
+                                     cycle_chunk=12, scan_chunk=scan_chunk,
+                                     telemetry=True)
+    got = tb.batched_solve_impl(list(ts), mode="vc_fused", cycle_chunk=12,
+                                scan_chunk=scan_chunk, device="cpu",
+                                telemetry=True)
+    _same_result(want, got, True)
+
+
+@pytest.mark.parametrize("mode", ["vc", "vc_fused"])
+def test_batched_run_cycles_leaves_the_callers_state(mode):
+    """``batched_run_cycles`` works on its own copy: the caller's state
+    tensors are unchanged after a loop that moved the state."""
+    _, ts, _ = _instances(7, "bcsr", k=3)
+    bg, meta, res0, _ = tb.pack_instances(list(ts), device="cpu")
+    state = tb.batched_global_relabel(
+        bg, meta, tb.batched_preflow(bg, meta, res0))[0]
+    before = tb.BatchedPRState(*(x.clone() for x in state))
+    out, cycles = tb.batched_run_cycles(bg, meta, state, mode=mode,
+                                        max_cycles=16)
+    assert int(cycles.max()) > 0 and not torch.equal(out.e, before.e)
+    for f in ("res", "h", "e"):
+        assert torch.equal(getattr(state, f), getattr(before, f)), f

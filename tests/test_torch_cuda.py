@@ -14,7 +14,7 @@ from repro_torch.api import MaxflowProblem, Solver
 from repro_torch.core import batched as tb
 from repro_torch.core.csr import Graph, build_residual
 from repro_torch.core.ref_maxflow import dinic_maxflow
-from repro_torch.graphs.generators import washington_rlg
+from repro_torch.graphs.generators import random_sparse, washington_rlg
 from repro_torch.kernels import discharge as tdis
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.revsearch import bcsr_rev_search, search_steps
@@ -299,8 +299,87 @@ def test_fused_discharge_kernel_idle_state(cuda):
     _same((res, h, e), tuple(state))
 
 
+def _hub_batch(dev):
+    """One instance whose vertex 1 has 3000 arcs (the source feeds it;
+    it feeds 3000 spokes that all reach the sink), packed: the states
+    after preflow and after the first global relabel."""
+    g0, _, _ = random_sparse(3500, 6000, seed=8)
+    spokes = np.arange(2, 3002)
+    edges = np.concatenate([
+        g0.edges, [[0, 1]], np.stack([np.ones_like(spokes), spokes], 1),
+        np.stack([spokes, np.full_like(spokes, 3499)], 1)])
+    cap = np.concatenate([g0.cap, [200], np.ones(6000, np.int64)])
+    r = build_residual(Graph(3500, edges, cap), "bcsr")
+    assert int(np.diff(r.indptr)[1]) >= 3000
+    bg, meta, res0, _ = tb.pack_instances([(r, 0, 3499)], device=dev)
+    pre = tb.batched_preflow(bg, meta, res0)
+    return bg, meta, (pre, tb.batched_global_relabel(bg, meta, pre)[0])
+
+
+def _in_place_matches_plain(args, n, k, counters, want=None):
+    """The in-place entry on copies of ``args``' state, gate open then
+    closed, one launch a call: open, the plain version's state and
+    outputs (``want``, else computed on the card); closed, the state
+    untouched and every output 0."""
+    want = want or tdis.fused_discharge_batched_plain(*args, n=n, k=k,
+                                                      counters=True)
+    dev = args[0].device
+    for gate in (True, False):
+        st = [x.clone() for x in args[5:]]
+        before = tdis.fused_discharge_batched.launches
+        out = tdis.fused_discharge_batched_(
+            *args[:5], *st, n=n, k=k, counters=counters,
+            gate=torch.tensor(gate, device=dev))
+        assert tdis.fused_discharge_batched.launches == before + 1
+        outs = (*out[:2], *(out[2] if counters else ()))
+        torch.cuda.synchronize()
+        if gate:
+            wants = (*want[:5], *(want[5] if counters else ()))
+            for g, w in zip((*st, *outs), wants):
+                assert torch.equal(g.cpu(), w.cpu())
+        else:
+            for g, w in zip(st, args[5:]):
+                assert torch.equal(g, w)
+            assert not any(bool(x.any()) for x in outs)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("counters", [False, True])
+def test_fused_in_place_kernel_gate_open_and_closed(cuda, k, counters):
+    """The in-place entry against the plain version, gate open and
+    closed: B = 3 rows with padded and trivial lanes and a hub of 3000
+    arcs, after preflow, after a global relabel and idle (no excess)."""
+    for bg, meta, (pre, post) in (_fused_batch(cuda), _hub_batch(cuda)):
+        idle = tb.BatchedPRState(post.res, post.h, torch.zeros_like(post.e))
+        for st in (pre, post, idle):
+            _in_place_matches_plain(
+                (bg.s, bg.t, bg.indptr, bg.heads, bg.rev, *st), meta.n, k,
+                counters)
+
+
+def test_fused_in_place_kernel_scratch_reuse(cuda):
+    """Eight launches on one scratch, the drivers' way, equal eight on
+    fresh scratch and leave the scratch's accumulators (the queue's first
+    ``N_ACC`` words) at 0."""
+    bg, meta, (pre, _) = _fused_batch(cuda)
+    args = (bg.s, bg.t, bg.indptr, bg.heads, bg.rev)
+    shared = tdis.discharge_scratch(bg.batch, meta.n, 4, cuda)
+    a = [x.clone() for x in pre]
+    b = [x.clone() for x in pre]
+    for _ in range(8):
+        got = tdis.fused_discharge_batched_(*args, *a, n=meta.n, k=4,
+                                            gate=None, scratch=shared,
+                                            counters=True)
+        want = tdis.fused_discharge_batched_(*args, *b, n=meta.n, k=4,
+                                             gate=None, counters=True)
+        _same((*a, *got[:2], *got[2]), (*b, *want[:2], *want[2]))
+    torch.cuda.synchronize()
+    assert not bool(shared.queue[:, :tdis.N_ACC].any())
+
+
 def _most_resident_blocks(dev) -> int:
-    """Blocks of 256 threads the card can hold resident at once."""
+    """Blocks of 256 threads the card can hold resident at once: at least
+    as many as the fused kernel's grid holds in any of its builds."""
     props = torch.cuda.get_device_properties(dev)
     return (getattr(props, "max_threads_per_multi_processor", 2048) // 256
             * props.multi_processor_count)
@@ -320,6 +399,7 @@ def test_fused_discharge_kernel_more_rows_than_resident_blocks(cuda):
     torch.cuda.synchronize()
     for g, w in zip((*got[:5], *got[5]), (*want[:5], *want[5])):
         assert torch.equal(g.cpu(), w)
+    _in_place_matches_plain(many, meta.n, 3, True, want)
 
 
 def test_fused_solve_many_more_rows_than_resident_blocks(cuda):

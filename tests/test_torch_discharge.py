@@ -155,7 +155,8 @@ def test_fused_discharge_bit_for_bit_vs_vc_step(seed, k):
 
 @pytest.mark.parametrize("terminals", ["ints", "tensors"])
 def test_fused_discharge_single_instance_wrapper(terminals):
-    """``fused_discharge`` (the ``vc_fused`` driver's adapter) with
+    """``fused_discharge`` (the single-instance adapter, the JAX
+    package's ``fused_discharge`` signature; no driver calls it) with
     ``counters=True`` == ``k`` JAX ``vc_step``s, whether ``s``/``t`` come
     as ints or as the ``(1,)`` tensors a loop builds once."""
     (rj, gj, mj, _), (rt, gt, mt, _) = _pair(5)
@@ -277,3 +278,117 @@ def test_cpu_wrapper_launches_nothing_and_checks_operands():
     bad[3] = torch.cat([gt.heads, gt.heads])[None, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         tdis.fused_discharge_batched(*bad, n=mt.n)
+
+
+def _entry_args(seed, name):
+    """The fused kernel's operands for one row of ``_states(seed)``'s
+    ``name`` state (``idle``: the post-relabel state with no excess),
+    and the JAX state they hold."""
+    (rj, gj, mj, _), (rt, gt, mt, _) = _pair(seed)
+    s, t = 0, mj.n - 1
+    states = {nm: (sj, st) for nm, sj, st in _states(seed)}
+    sj, st = states["global_relabel" if name == "idle" else name]
+    if name == "idle":
+        sj = jpr.PRState(sj.res, sj.h, jnp.zeros_like(sj.e))
+        st = tpr.PRState(st.res, st.h, torch.zeros_like(st.e))
+    graph = (_t([s]), _t([t]), gt.indptr[None], gt.heads[None],
+             gt.rev[None])
+    return (gj, mj, sj, s, t), graph, tuple(x[None] for x in st), mt.n
+
+
+@pytest.mark.parametrize("gate", ["open", "none"])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("name", ["preflow", "global_relabel", "idle"])
+def test_in_place_entry_with_gate_open_equals_plain(name, k, gate):
+    """``fused_discharge_batched_`` with the gate open (a true 0-d tensor,
+    or ``None``) leaves in ``res/h/e`` what the out-of-place plain version
+    returns and what ``k`` JAX ``vc_step``s give, and returns its live
+    cycles, pushed flag and per-cycle counters."""
+    (gj, mj, sj, s, t), graph, state, n = _entry_args(5, name)
+    want = tdis.fused_discharge_batched_plain(*graph, *state, n=n, k=k,
+                                              counters=True)
+    jstate, live, pushed, cnt = _want(gj, mj, sj, s, t, k)
+    work = tuple(x.clone() for x in state)
+    g = torch.tensor(True) if gate == "open" else None
+    glive, gpushed, gcnt = tdis.fused_discharge_batched_(
+        *graph, *work, n=n, k=k, gate=g, counters=True)
+    for f, got, w in zip(("res", "h", "e"), work, want[:3]):
+        assert torch.equal(got, w), f
+        np.testing.assert_array_equal(got[0].numpy(),
+                                      np.asarray(getattr(jstate, f)))
+    assert torch.equal(glive, want[3]) and torch.equal(gpushed, want[4])
+    assert (int(glive[0]), int(gpushed[0])) == (live, pushed)
+    for a, b in zip(gcnt, want[5]):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    np.testing.assert_array_equal(torch.stack(gcnt)[:, 0].numpy(), cnt)
+
+
+@pytest.mark.parametrize("counters", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("name", ["preflow", "global_relabel", "idle"])
+def test_in_place_entry_with_gate_closed_changes_nothing(name, k, counters):
+    """A closed gate leaves ``res/h/e`` bit for bit as they were and
+    reports 0 live cycles, no push and zero counters, also in a scratch
+    that held the outputs of an earlier launch."""
+    _, graph, state, n = _entry_args(31, name)
+    work = tuple(x.clone() for x in state)
+    scratch = tdis.discharge_scratch(1, n, k, "cpu")
+    tdis.fused_discharge_batched_(*graph, *tuple(x.clone() for x in state),
+                                  n=n, k=k, gate=None, scratch=scratch)
+    out = tdis.fused_discharge_batched_(*graph, *work, n=n, k=k,
+                                        gate=torch.tensor(False),
+                                        scratch=scratch, counters=counters)
+    for got, want in zip(work, state):
+        assert torch.equal(got, want)
+    assert len(out) == (3 if counters else 2)
+    flat = (*out[:2], *(out[2] if counters else scratch.counts))
+    assert all(not x.any() for x in flat)
+    assert out[0].data_ptr() == scratch.live.data_ptr()  # views, no copy
+
+
+def test_out_of_place_entry_leaves_its_inputs():
+    """``fused_discharge_batched`` returns new tensors and leaves the
+    state it was given as it was, on a state the launch changes."""
+    _, graph, state, n = _entry_args(5, "global_relabel")
+    before = tuple(x.clone() for x in state)
+    res, h, e, *_ = tdis.fused_discharge_batched(*graph, *state, n=n, k=3)
+    for got, old, new in zip(state, before, (res, h, e)):
+        assert torch.equal(got, old)
+        assert new.data_ptr() != got.data_ptr()
+    assert not (torch.equal(res, state[0]) and torch.equal(e, state[2]))
+
+
+def test_scratch_reused_across_launches_equals_fresh_scratch():
+    """Launch after launch on one scratch (the drivers' loop) gives what
+    a fresh scratch gives each time, every output written anew, and the
+    accumulators ahead of the queue stay 0."""
+    _, graph, state, n = _entry_args(5, "preflow")
+    shared = tdis.discharge_scratch(1, n, 3, "cpu")
+    a = tuple(x.clone() for x in state)
+    b = tuple(x.clone() for x in state)
+    for _ in range(4):
+        got = tdis.fused_discharge_batched_(*graph, *a, n=n, k=3, gate=None,
+                                            scratch=shared, counters=True)
+        want = tdis.fused_discharge_batched_(*graph, *b, n=n, k=3, gate=None,
+                                             counters=True)
+        for x, y in zip((*a, *got[:2], *got[2]), (*b, *want[:2], *want[2])):
+            assert torch.equal(x, y)
+    assert not shared.queue[:, :tdis.N_ACC].any()
+
+
+def test_in_place_entry_checks_gate_and_scratch():
+    _, graph, state, n = _entry_args(31, "preflow")
+    with pytest.raises(ValueError, match="gate"):
+        tdis.fused_discharge_batched_(*graph, *state, n=n, k=2,
+                                      gate=torch.tensor([True]))
+    with pytest.raises(ValueError, match="gate"):
+        tdis.fused_discharge_batched_(*graph, *state, n=n, k=2,
+                                      gate=torch.tensor(1))
+    with pytest.raises(ValueError, match="scratch.counts"):
+        tdis.fused_discharge_batched_(
+            *graph, *state, n=n, k=2, gate=None,
+            scratch=tdis.discharge_scratch(1, n, 3, "cpu"))
+    with pytest.raises(ValueError, match="scratch.queue"):
+        tdis.fused_discharge_batched_(
+            *graph, *state, n=n, k=2, gate=None,
+            scratch=tdis.discharge_scratch(1, n + 1, 2, "cpu"))

@@ -232,3 +232,87 @@ def test_fused_solve_matches_jax_fused_solve(seed, monkeypatch):
     assert (plain.cycles, plain.gr_sweeps) == (got.cycles, got.gr_sweeps)
     for f in ("res", "h", "e"):
         assert torch.equal(getattr(plain.state, f), getattr(got.state, f))
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 4])
+@pytest.mark.parametrize("budget", [3, 5, 13])
+def test_fused_run_cycles_chunked_matches_jax_fused_driver(budget, chunk,
+                                                           monkeypatch):
+    """The in-place ``vc_fused`` loop at engine chunks of 1, 3 and 4 and
+    budgets that are no multiple of K = 8, so that the gate closes in the
+    middle of a chunk: state, cycles and telemetry equal the JAX driver's
+    with its kernel emulated."""
+    from tests.test_torch_discharge import jax_kernels_emulated
+
+    (rj, gj, mj, res0j), (rt, gt, mt, res0t) = _pair(2)
+    s, t = 0, mj.n - 1
+    with jax_kernels_emulated(monkeypatch):
+        jstate, jc, jtel = jpr.run_cycles(
+            gj, mj, jpr.preflow(gj, mj, res0j, s), s, t, mode="vc_fused",
+            max_cycles=16, budget=budget, telemetry=True, chunk=chunk)
+    tstate, tc, ttel = tpr.run_cycles(
+        gt, mt, tpr.preflow(gt, mt, res0t, s), s, t, mode="vc_fused",
+        max_cycles=16, budget=budget, telemetry=True, chunk=chunk)
+    assert int(tc) == int(jc)
+    _same_state(jstate, tstate)
+    for f in jtel._fields:
+        np.testing.assert_array_equal(getattr(ttel, f).numpy(),
+                                      np.asarray(getattr(jtel, f)),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("mode", ["vc", "vc_fused"])
+def test_run_cycles_leaves_the_callers_state(mode):
+    """``run_cycles`` works on its own copy: the caller's state tensors
+    are unchanged after a loop that moved the state (``vc_fused``'s
+    kernel updates in place)."""
+    _, (rt, gt, mt, res0t) = _pair(1)
+    state = tpr.preflow(gt, mt, res0t, 0)
+    before = tpr.PRState(*(x.clone() for x in state))
+    out, cycles = tpr.run_cycles(gt, mt, state, 0, mt.n - 1, mode=mode,
+                                 max_cycles=16)
+    assert int(cycles) > 0 and not torch.equal(out.e, before.e)
+    for f in ("res", "h", "e"):
+        assert torch.equal(getattr(state, f), getattr(before, f)), f
+        assert getattr(out, f).data_ptr() != getattr(state, f).data_ptr()
+
+
+@pytest.mark.parametrize("live", [True, False])
+def test_gate_identity_shortcut_equals_where(live):
+    """``engine._gate`` keeps a leaf the step returned as it was given
+    (an in-place update) without a select, which is what ``torch.where``
+    gives for it, and selects every other leaf; ``None`` rides along."""
+    gate = torch.tensor(live)
+    shared = torch.arange(4, dtype=torch.int32)
+    old = (tpr.PRState(shared, torch.zeros(3, dtype=torch.int32), None),
+           torch.tensor(2))
+    new = (tpr.PRState(shared, torch.ones(3, dtype=torch.int32), None),
+           torch.tensor(7))
+    got = engine._gate(gate, new, old)
+    assert got[0].res is shared
+    assert torch.equal(got[0].res, torch.where(gate, shared, shared))
+    assert got[0].e is None and isinstance(got[0], tpr.PRState)
+    for g, n, o in ((got[0].h, new[0].h, old[0].h), (got[1], new[1],
+                                                     old[1])):
+        assert torch.equal(g, torch.where(gate, n, o))
+    assert engine._gate(gate, old, old) is old
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 4, 7])
+def test_engine_passes_the_gate_to_an_in_place_step(chunk):
+    """With ``pass_gate=True`` an in-place step that honours its gate
+    gives the out-of-place step's carry and step count, for chunks that
+    do and do not divide the trip count."""
+    def step(c, gate):
+        x, k = c
+        x.copy_(torch.where(gate, x * 2 + 1, x))  # in place, under gate
+        return x, k + 1
+
+    def cond(c):
+        return c[1] < 10
+
+    carry = (torch.zeros(3, dtype=torch.int64), torch.tensor(0))
+    x, k = engine.run_bulk_loop(step, carry, cond_fn=cond, chunk=chunk,
+                                pass_gate=True)
+    assert x is carry[0]
+    assert x.tolist() == [1023] * 3 and int(k) == 10
