@@ -31,13 +31,19 @@ and the out-of-place one.  It checks that one engine chunk of cycles
 global-relabel sweeps never synchronises with the host,
 and times every kernel beside its plain version, a PyTorch yardstick call
 where one exists and its memory bound, the min search's hook with its key
-built by eager ops against the entry that gathers the key itself
-(``hook_timing``), and each step's host, wall and device time.  The min
-search has two entries into one CUDA source, ``tile_min_neighbor`` (key
-in, the TPU kernel's function, which no path launches: it is timed against
-``scatter_reduce`` and is the gather entry's oracle) and
-``tile_min_neighbor_gather`` (the solver's); each is held and timed in
-both forms, and each path must leave the key-in entry's count at 0.
+built by eager ops against the entry that gathers the key itself, and the
+paper-faithful cycle's search as two launches against the one that folds
+the reverse search in (``hook_timing``), and each step's host, wall and
+device time.  The min search has three entries into one CUDA source,
+``tile_min_neighbor`` (key in, the TPU kernel's function, which no path
+launches: it is timed against ``scatter_reduce`` and is the gather
+entry's oracle), ``tile_min_neighbor_gather`` (the solver's: ``vc_kernel``
+cycles and every kernel sweep) and ``tile_min_neighbor_gather_rev`` (the
+``vc_kernel_bsearch`` cycle's, with each push's reverse arc).  The
+standalone ``bcsr_rev_search`` is the TPU kernel's own function, which no
+path launches either: it is held and timed against ``searchsorted`` as
+the yardstick of the fold.  Each path must leave those two kernels'
+counts at 0.
 
 Prints one JSON line per phase, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -81,16 +87,26 @@ BATCH = 8
 BATCH_MODES = ("vc_fused", "vc_kernel_bsearch", "vc")
 #: the kernels' launch counters, by the name the ``kernels`` line uses:
 #: the min search's two forms by the key-in entry, the same by the entry
-#: that gathers its key itself, the reverse search, the discharge
+#: that gathers its key itself, its rev entry, the standalone reverse
+#: search, the discharge
 KERNELS = ("tile_min_neighbor[avq]", "tile_min_neighbor[dense]",
            "tile_min_neighbor_gather[avq]", "tile_min_neighbor_gather[dense]",
-           "bcsr_rev_search", "fused_discharge_batched")
+           "tile_min_neighbor_gather_rev", "bcsr_rev_search",
+           "fused_discharge_batched")
 #: the kernels each kernel-mode path must launch
-MAIN_KERNELS = KERNELS[2:5]
+MAIN_KERNELS = ("tile_min_neighbor_gather_rev",
+                "tile_min_neighbor_gather[dense]")
+VC_KERNEL_KERNELS = ("tile_min_neighbor_gather[avq]",
+                     "tile_min_neighbor_gather[dense]")
 FUSED_KERNELS = ("fused_discharge_batched", "tile_min_neighbor_gather[dense]")
-#: the key-in entry, which no path may launch (the solver's hook builds
-#: no key array)
-KEY_IN = KERNELS[:2]
+#: the TPU kernels' own functions, which no path may launch: the key-in
+#: min search (the solver's hook builds no key array) and the standalone
+#: reverse search (the bsearch cycle folds it into the min search)
+OFF_PATH = ("tile_min_neighbor[avq]", "tile_min_neighbor[dense]",
+            "bcsr_rev_search")
+#: the path whose launches each kernel's row reports (the rest: "main")
+ROW_PATH = {"tile_min_neighbor_gather[avq]": "vc_kernel",
+            "fused_discharge_batched": "fused"}
 
 
 def emit(obj) -> None:
@@ -160,6 +176,37 @@ def top_device_ops(torch, fn, steps: int, top: int = 6) -> dict:
     return {k: v for k, v in ops[:top]}
 
 
+def search_reads(torch, arcs, indptr, heads, tails, steps: int):
+    """The positions in ``heads`` that the reverse searches of the push
+    arcs ``arcs`` (all in ``[0, A)``) read, each search's ``steps`` probes
+    and its final check, with repeats; and the vertices ``v`` whose
+    segments they search."""
+    a = heads.shape[0]
+    u, v = tails[arcs], heads[arcs]
+    lo, end = indptr[v], indptr[v + 1]
+    hi, probes = end, []
+    for _ in range(steps):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        probes.append(torch.clamp(mid, max=a - 1))
+        right = heads[probes[-1]] < u
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(right, hi, mid)
+    # the final check reads heads[lo] only where lo < end; else it repeats
+    # the last probe
+    probes.append(torch.where(lo < end, torch.clamp(lo, max=a - 1),
+                              probes[-1]))
+    return torch.cat(probes), v
+
+
+def distinct(torch, size: int, *index) -> int:
+    """How many distinct positions of an array of ``size`` the index
+    tensors name together: the words a function reads once."""
+    seen = torch.zeros(size, dtype=torch.bool, device=index[0].device)
+    for i in index:
+        seen[i.long()] = True
+    return int(seen.sum())
+
+
 def scipy_maxflow(n, edges, cap, s, t):
     """scipy's Dinic on the same edges (duplicates summed, as
     ``csr_matrix`` does): the independent oracle of the main path.
@@ -180,11 +227,14 @@ def reset_counts() -> None:
     from repro_torch.kernels.discharge import fused_discharge_batched
     from repro_torch.kernels.revsearch import bcsr_rev_search
     from repro_torch.kernels.segmin import (tile_min_neighbor,
-                                            tile_min_neighbor_gather)
+                                            tile_min_neighbor_gather,
+                                            tile_min_neighbor_gather_rev)
 
     for fn in (tile_min_neighbor, tile_min_neighbor_gather):
         fn.launches = fn.dense_launches = 0
-    bcsr_rev_search.launches = fused_discharge_batched.launches = 0
+    for fn in (tile_min_neighbor_gather_rev, bcsr_rev_search,
+               fused_discharge_batched):
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
@@ -192,19 +242,21 @@ def launch_counts() -> dict:
     from repro_torch.kernels.discharge import fused_discharge_batched
     from repro_torch.kernels.revsearch import bcsr_rev_search
     from repro_torch.kernels.segmin import (tile_min_neighbor,
-                                            tile_min_neighbor_gather)
+                                            tile_min_neighbor_gather,
+                                            tile_min_neighbor_gather_rev)
 
     seg, gat = tile_min_neighbor, tile_min_neighbor_gather
     return dict(zip(KERNELS, (
         seg.launches - seg.dense_launches, seg.dense_launches,
         gat.launches - gat.dense_launches, gat.dense_launches,
-        bcsr_rev_search.launches, fused_discharge_batched.launches)))
+        tile_min_neighbor_gather_rev.launches, bcsr_rev_search.launches,
+        fused_discharge_batched.launches)))
 
 
 def driven(torch, fn, expect=()):
     """Run one path, ``fn()``, with the launch counts set to 0 just before
     it and read just after; fail if a kernel of ``expect`` never launched
-    or the key-in min search launched at all.  Returns ``(result, wall
+    or one of ``OFF_PATH`` launched at all.  Returns ``(result, wall
     seconds, counts)``."""
     torch.cuda.synchronize()
     reset_counts()
@@ -215,7 +267,7 @@ def driven(torch, fn, expect=()):
     counts = launch_counts()
     for name in expect:
         require(counts[name] > 0, f"{name} never launched on this path")
-    for name in KEY_IN:
+    for name in OFF_PATH:
         require(counts[name] == 0, f"{name} launched on a path")
     return out, wall, counts
 
@@ -262,14 +314,16 @@ def main_path_and_modes(small, torch, problem, batch, oracles):
     g_s, s_s, t_s = washington_rlg(*small, seed=SEED)
     p_small = MaxflowProblem(g_s, s_s, t_s)
     p_small.residual("bcsr")
-    k_small, wall_k, _ = solve("vc_kernel", p_small)
+    k_small, wall_k, paths["vc_kernel"] = solve("vc_kernel", p_small,
+                                                VC_KERNEL_KERNELS)
     v_small, wall_v, _ = solve("vc", p_small)
     same_solution(torch, k_small, v_small, "vc_kernel vs vc")
     emit({"phase": "modes_vs_plain", "ok": True, "vc_wall_s": wall_vc,
           "small_graph": f"washington_rlg({small[0]}, {small[1]}, "
           f"seed={SEED})",
           "small_value": k_small.value, "small_cycles": k_small.stats.cycles,
-          "small_vc_kernel_wall_s": wall_k, "small_vc_wall_s": wall_v})
+          "small_vc_kernel_wall_s": wall_k, "small_vc_wall_s": wall_v,
+          "small_vc_kernel_launches": paths["vc_kernel"]})
 
     fused, wall_f, paths["fused"] = solve("vc_fused", problem,
                                           FUSED_KERNELS)
@@ -395,10 +449,10 @@ def main(argv=None) -> int:
                                                fused_discharge_batched_,
                                                fused_discharge_batched_plain)
     from repro_torch.kernels.revsearch import bcsr_rev_search, search_steps
-    from repro_torch.kernels.segmin import (tile_min_neighbor,
-                                            tile_min_neighbor_gather,
-                                            tile_min_neighbor_gather_plain,
-                                            tile_min_neighbor_plain)
+    from repro_torch.kernels.segmin import (
+        tile_min_neighbor, tile_min_neighbor_gather,
+        tile_min_neighbor_gather_plain, tile_min_neighbor_gather_rev,
+        tile_min_neighbor_gather_rev_plain, tile_min_neighbor_plain)
 
     dev = torch.device("cuda")
     inf = kref.INF
@@ -534,6 +588,91 @@ def main(argv=None) -> int:
         if what == "1-D":
             hold("bcsr_rev_search", got,
                  kref.rev_search_ref(arcs3[0], rev3[0], a_r), "rev table")
+    # the rev entry on the same rows, with random heights and queues of
+    # distinct vertices: the rev table at each push on these well-formed
+    # rows, and the standalone search on its push arcs
+    n_b = indptr3.shape[1] - 1
+    res3 = torch.tensor(rng.integers(-1, 3, size=(3, a_r)),
+                        dtype=torch.int32, device=dev)
+    h3 = torch.tensor(rng.integers(0, 9, size=(3, n_b)), dtype=torch.int32,
+                      device=dev)
+    avq3 = torch.tensor(np.stack([np.concatenate([
+        rng.choice(n_b, 900, replace=False), np.full(n_b - 900, n_b)])
+        for _ in range(3)]), dtype=torch.int32, device=dev)
+    for sl, what in ((0, "1-D"), (slice(None), "B=3")):
+        rargs = (avq3[sl], indptr3[sl], heads3[sl], tails3[sl], res3[sl],
+                 h3[sl])
+        got = tile_min_neighbor_gather_rev(*rargs, n=n_b, deg_max=deg_max)
+        hold("tile_min_neighbor_gather_rev", got,
+             tile_min_neighbor_gather_rev_plain(*rargs, n=n_b, steps=steps),
+             what)
+        push = torch.where(got[2] < a_r, got[1], a_r)
+        require(bool((push < a_r).any()), "the rev entry found no push")
+        pairs = zip(push.view(-1, push.shape[-1]), rev3[sl].view(-1, a_r))
+        hold("tile_min_neighbor_gather_rev", got[2], torch.stack([
+            kref.rev_search_ref(p_, r_, a_r) for p_, r_ in pairs]).view(
+                push.shape), f"{what}, rev table")
+        hold("bcsr_rev_search",
+             bcsr_rev_search(push, *rargs[1:4], deg_max=deg_max), got[2],
+             f"{what}, the rev entry's push arcs")
+    # a hub of 3000 arcs (12 halvings, probes far apart) and a vertex of 60
+    # (vertex 2, wider than a warp), with runs of duplicate heads in both
+    # and the arc of 2 back to 3100 moved away (its reverse is absent); each
+    # queue starts with 2's other 59 spokes, so that a warp's searches share
+    # one segment; the standalone search on its push arcs
+    # among random arcs and sentinels, in rows of P lanes with P a multiple
+    # of the block and not, and a row off any alignment
+    n_c = 3200
+    g_c = Graph(n_c, np.concatenate([
+        rng.integers(3, 3100, size=(3000, 2)),
+        np.stack([np.ones(3000, np.int64), np.arange(100, 3100)], 1),
+        np.stack([np.full(60, 2), np.arange(3100, 3160)], 1)]),
+        np.ones(6060, np.int64))
+    r_c = build_residual(g_c, "bcsr")
+    heads_c = r_c.heads.copy()
+    for v, at in ((1, 500), (1, 2500), (2, 20)):
+        heads_c[r_c.indptr[v] + at:r_c.indptr[v] + at + 6] = \
+            heads_c[r_c.indptr[v] + at]
+    heads_c[r_c.indptr[2]] = n_c - 1
+    a_c = r_c.num_arcs
+    res_c = rng.integers(-1, 3, size=(3, a_c))
+    res_c[:, np.isin(heads_c, (1, 2))] = 1
+    h_c = rng.integers(1, 12, size=(3, n_c))
+    h_c[:, [1, 2]] = 0
+    avq_c = np.full((3, n_c), n_c)
+    for b in range(3):
+        rest = np.unique(np.concatenate([
+            [1, 2, 3100], rng.choice(np.arange(100, 3100), 400,
+                                     replace=False),
+            rng.choice(np.arange(3, 100), 50)]))
+        avq_c[b, :59] = np.arange(3101, 3160)
+        avq_c[b, 59:59 + rest.size] = rng.permutation(rest)
+    cargs = [torch.tensor(np.stack([x] * 3) if x.ndim == 1 else x,
+                          dtype=torch.int32, device=dev)
+             for x in (avq_c, r_c.indptr, heads_c, r_c.tails, res_c, h_c)]
+    steps_c = search_steps(r_c.deg_max)
+    for sl, what in ((0, "1-D"), (slice(None), "B=3")):
+        rargs = [x[sl] for x in cargs]
+        got = tile_min_neighbor_gather_rev(*rargs, n=n_c,
+                                           deg_max=r_c.deg_max)
+        hold("tile_min_neighbor_gather_rev", got,
+             tile_min_neighbor_gather_rev_plain(*rargs, n=n_c, steps=steps_c),
+             f"{what}, hub, duplicates, missing reverse")
+        at = (rargs[0] == 3100).nonzero()
+        require(bool((got[2][tuple(at.t())] == a_c).all()),
+                "the push with no reverse arc did not give A")
+    push_c = torch.where(got[2] < a_c, got[1], a_c)
+    for p_c in (4096, 4099):
+        arcs_c = torch.tensor(rng.integers(-3, a_c + 3, size=(3, p_c)),
+                              dtype=torch.int32, device=dev)
+        arcs_c[:, :n_c // 2] = push_c[:, :n_c // 2]
+        for sl, what in ((0, "1-D"), (1, "1-D, row 1"),
+                         (slice(None), "B=3")):
+            sargs = (arcs_c[sl], *(x[sl] for x in cargs[1:4]))
+            hold("bcsr_rev_search",
+                 bcsr_rev_search(*sargs, deg_max=r_c.deg_max),
+                 kref.rev_search_bsearch_ref(*sargs, steps=steps_c),
+                 f"{what}, P={p_c}, hub, duplicates, missing reverse")
 
     # fused discharge: k in {1, 3, 8}, counters off and on, on three
     # washington rows of different sizes (padded vertices and arcs) whose
@@ -713,6 +852,20 @@ def main(argv=None) -> int:
              tile_min_neighbor_gather(*gargs, n=bmeta.n),
              tile_min_neighbor_gather_plain(*gargs, n=bmeta.n),
              "batched path, post-relabel")
+    rargs = (bavq, bbg.indptr, bbg.heads, bbg.tails, bstate.res, bstate.h)
+    got = tile_min_neighbor_gather_rev(*rargs, n=bmeta.n,
+                                       deg_max=bmeta.deg_max)
+    hold("tile_min_neighbor_gather_rev", got,
+         tile_min_neighbor_gather_rev_plain(
+             *rargs, n=bmeta.n, steps=search_steps(bmeta.deg_max)),
+         "batched path, post-relabel")
+    a_b = bbg.heads.shape[1]
+    hold("tile_min_neighbor_gather_rev", got[2], torch.stack([
+        kref.rev_search_ref(torch.where(r_ < a_b, g_, a_b), v_, a_b)
+        for g_, r_, v_ in zip(got[1], got[2], bbg.rev)]),
+        "batched path, post-relabel, rev table")
+    b_bs = batched.batched_cycle_loop(bbg, bmeta, bstate,
+                                      "vc_kernel_bsearch", 1024)
     chunk = engine.DEFAULT_CHUNK
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -725,16 +878,20 @@ def main(argv=None) -> int:
                                              pass_gate=mode == "vc_fused")
         b_carry = engine.run_chunk(b_step, b_carry, cond_fn=b_cond,
                                    chunk=chunk, pass_gate=True)
+        bs_carry = engine.run_chunk(b_bs[0], b_bs[2], cond_fn=b_bs[1],
+                                    chunk=chunk)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     require(int(fp_carry[2]) == chunk
             and int(carries["vc_kernel_bsearch"][1]) == chunk
             and int(carries["vc_fused"][1]) == chunk * K_DEFAULT
-            and int(b_carry[2]) == chunk * K_DEFAULT,
+            and int(b_carry[2]) == chunk * K_DEFAULT
+            and int(bs_carry[2]) == chunk,
             "the sync-free chunks did not run their steps")
     emit({"phase": "no_host_sync", "ok": True, "chunk": chunk,
           "loops": ["sweep[kernel]", "cycle[vc_kernel_bsearch]",
-                    "cycle[vc_fused]", "batched cycle[vc_fused]"]})
+                    "cycle[vc_fused]", "batched cycle[vc_fused]",
+                    "batched cycle[vc_kernel_bsearch]"]})
     # and mid-solve, at the state the batched chunk left
     got = fused_discharge_batched(*bargs, *b_carry[0], n=bmeta.n,
                                   k=K_DEFAULT, counters=True)
@@ -758,6 +915,9 @@ def main(argv=None) -> int:
         torch.int32)
     key = torch.where(state.res > 0, state.h[g.heads], inf)
     n_active = int(act.sum())
+    u_act = torch.nonzero(act).view(-1)
+    # indptr words the AVQ forms read: u and u + 1 of each active u, once
+    ip_act = distinct(torch, n + 1, u_act, u_act + 1)
     frontier = int((g.indptr[1:] - g.indptr[:-1])[act].sum())
     dist = torch.clamp(globalrelabel.residual_distances_impl(
         g, meta, state.res, t, minh_fn)[0] + 1, max=inf)
@@ -776,6 +936,20 @@ def main(argv=None) -> int:
     push = torch.where(do_push, torch.clamp(argarc, 0, a - 1), a)
     n_push = int(do_push.sum())
     steps = search_steps(meta.deg_max)
+    probes, v_push = search_reads(torch, push[do_push], g.indptr, g.heads,
+                                  g.tails, steps)
+    # what the rev entry reads once: indptr words of the active entries
+    # and of the pushed-into segments; the heads of the frontier arcs with
+    # res > 0 and those the searches probe; the heights of those arcs'
+    # heads and of each entry with an admissible arc
+    rev_ip = distinct(torch, n + 1, u_act, u_act + 1, v_push, v_push + 1)
+    rev_hd = distinct(torch, a, torch.nonzero(f_mask).view(-1), probes)
+    rev_h = distinct(torch, n, g.heads[f_mask], u_c[minh < inf])
+    # the standalone search's row keeps 12 probes a push; read once its
+    # bytes would be these
+    alone_once = (8 * n + 4 * n_push
+                  + 4 * distinct(torch, n + 1, v_push, v_push + 1)
+                  + 4 * distinct(torch, a, push[do_push], probes))
     tails64 = g.tails.long()
     pair = tails64 * n + g.heads.long()  # sorted under BCSR
     pv = torch.clamp(push, max=a - 1).long()
@@ -786,8 +960,9 @@ def main(argv=None) -> int:
             plain=lambda: tile_min_neighbor_plain(avq, g.indptr, key, n=n),
             # every entry: read avq, write two outputs; active entries
             # also read two indptr words; each frontier arc one key
-            library=None, bytes=12 * n + 8 * n_active + 4 * frontier,
+            library=None, bytes=12 * n + 4 * ip_act + 4 * frontier,
             source="segmin", shape={"Q": n, "A": a, "active": n_active,
+                                    "indptr_words": ip_act,
                                     "frontier_arcs": frontier}),
         "tile_min_neighbor[dense]": dict(
             kernel=lambda: tile_min_neighbor(None, g.indptr, dkey, n=n),
@@ -804,9 +979,10 @@ def main(argv=None) -> int:
                 avq, g.indptr, g.heads, state.res, state.h, n=n),
             # the key-in form's bytes with res for each frontier arc, the
             # head of each with res > 0 and each such head's height once
-            library=None, bytes=12 * n + 8 * n_active + 4 * frontier
+            library=None, bytes=12 * n + 4 * ip_act + 4 * frontier
             + 4 * frontier_pos + 4 * frontier_heads, source="segmin",
             shape={"Q": n, "A": a, "active": n_active,
+                   "indptr_words": ip_act,
                    "frontier_arcs": frontier,
                    "frontier_arcs_res_pos": frontier_pos,
                    "their_heads": frontier_heads}),
@@ -830,7 +1006,24 @@ def main(argv=None) -> int:
             # every lane: read its arc, write its result; a pushing lane
             # also reads tail, head, two indptr words, steps + 1 probes
             bytes=8 * n + 4 * n_push * (5 + steps), source="revsearch",
-            shape={"P": n, "pushes": n_push, "steps": steps}),
+            shape={"P": n, "pushes": n_push, "steps": steps,
+                   "bytes_read_once": alone_once}),
+        "tile_min_neighbor_gather_rev": dict(
+            kernel=lambda: tile_min_neighbor_gather_rev(
+                avq, g.indptr, g.heads, g.tails, state.res, state.h, n=n,
+                deg_max=meta.deg_max),
+            plain=lambda: tile_min_neighbor_gather_rev_plain(
+                avq, g.indptr, g.heads, g.tails, state.res, state.h, n=n,
+                steps=steps),
+            # the queue and three outputs a slot, res of each frontier
+            # arc, each push's tail, and the indptr words, heads and
+            # heights counted above, each once
+            library=None, bytes=16 * n + 4 * frontier + 4 * n_push
+            + 4 * rev_ip + 4 * rev_hd + 4 * rev_h, source="segmin",
+            shape={"Q": n, "A": a, "active": n_active,
+                   "frontier_arcs": frontier, "pushes": n_push,
+                   "steps": steps, "indptr_words": rev_ip,
+                   "heads_read": rev_hd, "heights_read": rev_h}),
     }
     # the fused discharge's bytes come from this state's own cycles: the
     # plain vc_step run K times gives each cycle's vertices with excess,
@@ -920,6 +1113,9 @@ def main(argv=None) -> int:
         if name == "bcsr_rev_search":
             hold(name, c["kernel"](), kref.rev_search_ref(push, g.rev, a),
                  "main-path rev table")
+        if name == "tile_min_neighbor_gather_rev":
+            hold(name, c["kernel"](), (minh, argarc, kref.rev_search_ref(
+                push, g.rev, a)), "main-path key-in entry and rev table")
         ms = device_ms(torch, c["kernel"], REPS, setup=setup)
         plain_ms = device_ms(torch, c["plain"], REPS)
         lib_ms = (device_ms(torch, c["library"], REPS)
@@ -935,9 +1131,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{c['source']}.cu",
             "replaces": REPLACES[c["source"]],
-            "launches": paths["fused" if name == "fused_discharge_batched"
-                              else "main"][name],
-            "on_path": name not in KEY_IN,
+            "launches": paths[ROW_PATH.get(name, "main")][name],
+            "on_path": name not in OFF_PATH,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms})
 
@@ -960,6 +1155,27 @@ def main(argv=None) -> int:
         emit({"phase": "hook_timing", "form": form, "unfused_ms": unfused_ms,
               "gather_ms": gather_ms, "unfused_over_gather":
               unfused_ms / gather_ms})
+    # the bsearch cycle's search before and after the fold: the gather
+    # entry, the push decision's select over the queue and the standalone
+    # reverse search, against the rev entry's one launch
+
+    def two_launches():
+        mh, aa = tile_min_neighbor_gather(avq, g.indptr, g.heads, state.res,
+                                          state.h, n=n)
+        _, dp = pr._push_decision(state.h, u_c, avq < n, mh)
+        return mh, aa, bcsr_rev_search(
+            torch.where(dp, torch.clamp(aa, 0, a - 1), a), g.indptr,
+            g.heads, g.tails, deg_max=meta.deg_max)
+
+    hold("tile_min_neighbor_gather_rev", cases[
+        "tile_min_neighbor_gather_rev"]["kernel"](), two_launches(),
+        "main-path shapes, against the two-launch route")
+    two_ms = device_ms(torch, two_launches, REPS)
+    rev_ms = device_ms(torch, cases["tile_min_neighbor_gather_rev"]["kernel"],
+                       REPS)
+    emit({"phase": "hook_timing", "form": "avq+rev", "two_launches_ms": two_ms,
+          "rev_entry_ms": rev_ms, "two_launches_over_rev_entry":
+          two_ms / rev_ms})
 
     # -- 7. where a step's time goes: host enqueue, wall, device ---------
     # every run of a loop starts from the mid-solve state; vc_fused's step

@@ -9,8 +9,9 @@ per-instance functions over that axis; PyTorch's ``vmap`` covers neither
 step over flat indices instead: row ``b``'s vertex ``v`` is
 ``b * n_pad + v`` and its arc ``a`` is ``b * A_pad + a``, and a batch is
 one graph of B disjoint parts.  Nothing loops over B.  The CUDA kernels
-take the ``(B, ·)`` rows natively, so each cycle's min search (and each
-K-cycle fused discharge) is ONE launch spanning the whole batch:
+take the ``(B, ·)`` rows natively, so each cycle's min search (with its
+reverse-arc search in ``vc_kernel_bsearch``, and each K-cycle fused
+discharge) is ONE launch spanning the whole batch:
 
 * ``pack_instances`` pads B ``ResidualCSR``s to a common ``(n_pad, A_pad)``
   and stacks them (padded vertices have empty arc segments; padded arcs
@@ -322,43 +323,38 @@ def _kernel_batch_step(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
     """One bulk-synchronous cycle over the whole batch.  Each row's AVQ is
     compacted with one scatter; the min-height search is ONE launch of
     the min-search kernel spanning every row (kernel modes) or one plain
-    flat-frontier search over the batch as one graph (``vc``); the
-    decide/apply runs on the flat graph, and in ``vc_kernel_bsearch``
-    every push's reverse arc comes from ONE launch of the binary-search
-    kernel.  Results are bit for bit ``vc``'s on each row."""
+    flat-frontier search over the batch as one graph (``vc``); in
+    ``vc_kernel_bsearch`` that launch also finds every push's reverse arc
+    (the min search's rev entry); the decide/apply runs on the flat graph.
+    Results are bit for bit ``vc``'s on each row."""
     from repro_torch.kernels import ops as kops
 
     n, A = meta.n, meta.num_arcs
     flat = flat or _flat(bg, meta)
-    bsz = bg.batch
-    N, AF = bsz * n, bsz * A
+    N, AF = bg.batch * n, bg.batch * A
     avq = row_avq(active_rows(state.h, state.e, n, bg.s, bg.t))
     q_valid = avq < n
     u = torch.where(q_valid, avq + flat.voff, N).view(-1)
     fstate = pr.PRState(*(x.view(-1) for x in state))
+    rev = None
     if mode == "vc":
         key = torch.where(fstate.res > 0, fstate.h[flat.g.heads], kref.INF)
         minh, argarc = kref.min_neighbor_segments(u, flat.starts, flat.ends,
                                                   key, n=N)
     else:
-        minh, argarc = kops.min_neighbor_kernel(_rows(bg), meta,
-                                                pr.PRState(*state), avq,
-                                                q_valid)
-        minh = minh.view(-1)
-        argarc = torch.where(argarc < A, argarc + flat.aoff, AF).view(-1)
-    rev_fn = None
-    if mode == "vc_kernel_bsearch":
-        from repro_torch.kernels.revsearch import bcsr_rev_search
+        hook = (kops.min_neighbor_rev_kernel if mode == "vc_kernel_bsearch"
+                else kops.min_neighbor_kernel)
+        out = hook(_rows(bg), meta, pr.PRState(*state), avq, q_valid)
+        minh = out[0].view(-1)
 
-        def rev_fn(g, fmeta, arcs):
-            # row-local push arcs (A = none) -> one batched launch -> flat
-            local = torch.where(arcs.view(bsz, n) < AF,
-                                arcs.view(bsz, n) - flat.aoff, A)
-            rv = bcsr_rev_search(local, bg.indptr, bg.heads, bg.tails,
-                                 deg_max=meta.deg_max)
-            return torch.where(rv < A, rv + flat.aoff, AF).view(-1)
+        def flat_arcs(x):  # row-local arcs (A = none) -> flat (AF = none)
+            return torch.where(x < A, x + flat.aoff, AF).view(-1)
+
+        argarc = flat_arcs(out[1])
+        if mode == "vc_kernel_bsearch":
+            rev = flat_arcs(out[2])
     new = pr._decide_apply(flat.g, flat.meta, fstate, u, q_valid.view(-1),
-                           minh, argarc, rev_fn=rev_fn, dead_end=n)
+                           minh, argarc, rev=rev, dead_end=n)
     return BatchedPRState(*(x.view(y.shape) for x, y in zip(new, state)))
 
 
@@ -381,8 +377,8 @@ def batched_run_cycles(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
     sweep instead of O(n) climb iterations.
 
     Modes: 'vc' (plain PyTorch), 'vc_kernel'/'vc_kernel_bsearch' (one
-    min-search launch per cycle spanning the batch, plus one
-    reverse-search launch in bsearch), and 'vc_fused' — one fused
+    min-search launch per cycle spanning the batch, which in bsearch also
+    finds the reverse arcs), and 'vc_fused' — one fused
     discharge launch per K cycles, its per-instance live-cycle counts
     keeping ``cycles[b]`` exact.  'tc' is not ported yet.
 

@@ -16,11 +16,12 @@ on ``res``), excess updates are scatter-adds (the commutative analogue of
 inherits its correctness proof [Hong 2008].  Integer adds commute, so the
 result is bit-for-bit the JAX package's.
 
-The kernel modes run the min search on the CUDA warp-per-vertex kernel
-(``repro_torch.kernels.segmin``) and, in ``vc_kernel_bsearch``, the
-reverse-arc lookup on the BCSR binary-search kernel
-(``repro_torch.kernels.revsearch``); ``vc_fused`` runs K whole cycles per
-launch of the fused discharge kernel (``repro_torch.kernels.discharge``).
+The kernel modes run the min search on the CUDA min-search kernel
+(``repro_torch.kernels.segmin``); in ``vc_kernel_bsearch`` the same launch
+also finds each push's reverse arc by the BCSR binary search
+(``segmin.tile_min_neighbor_gather_rev``); ``vc_fused`` runs K whole
+cycles per launch of the fused discharge kernel
+(``repro_torch.kernels.discharge``).
 The plain ``vc`` mode below is the reference semantics.  Nothing inside
 a cycle reads the device from the host: every shape is static and every
 scatter that the reference drops lands in a sentinel slot that is sliced
@@ -153,10 +154,13 @@ def _push_decision(h: torch.Tensor, u_c: torch.Tensor, q_valid: torch.Tensor,
 def _decide_apply(g: DeviceGraph, meta: GraphMeta, state: PRState,
                   u: torch.Tensor, q_valid: torch.Tensor,
                   minh: torch.Tensor, argarc: torch.Tensor,
-                  rev_fn: Callable | None = None,
+                  rev: torch.Tensor | None = None,
                   dead_end: int | None = None) -> PRState:
     """Push or relabel every queue entry against the min search's
-    ``(minh, argarc)``.  ``dead_end`` is the height a vertex without a
+    ``(minh, argarc)``.  ``rev`` (paper-faithful BCSR) is the reverse arc
+    of each entry's push arc as the min search's rev entry found it, ``A``
+    where the entry does not push or the arc was not found; ``None`` reads
+    the ``rev`` table.  ``dead_end`` is the height a vertex without a
     residual arc is relabelled to, ``meta.n`` by default; the batched
     core applies a whole batch as one graph of ``B * n_pad`` vertices and
     keeps it at ``n_pad``."""
@@ -167,10 +171,7 @@ def _decide_apply(g: DeviceGraph, meta: GraphMeta, state: PRState,
     can, do_push = _push_decision(h, u_c, q_valid, minh)
     d = torch.where(do_push, torch.minimum(e[u_c], res[arc_c]), 0)
 
-    if rev_fn is None:
-        rev_arc = g.rev[arc_c]
-    else:  # paper-faithful BCSR: locate the reverse arc by binary search
-        rev_arc = rev_fn(g, meta, torch.where(do_push, arc_c, A))
+    rev_arc = g.rev[arc_c] if rev is None else rev
     # the reference drops the scatters of lanes that do not push, and the
     # reverse scatter of a push whose reverse arc was not found (A); here
     # such a scatter adds a zero at its lane's slot, which leaves the same
@@ -198,23 +199,23 @@ def _decide_apply(g: DeviceGraph, meta: GraphMeta, state: PRState,
 
 
 def vc_step(g: DeviceGraph, meta: GraphMeta, state: PRState, s: int, t: int,
-            minh_fn: Callable | None = None,
-            rev_fn: Callable | None = None) -> PRState:
-    """One vertex-centric iteration (paper Alg. 2)."""
+            minh_fn: Callable | None = None) -> PRState:
+    """One vertex-centric iteration (paper Alg. 2).  ``minh_fn`` returns
+    ``(minh, argarc)``, or ``(minh, argarc, rev)`` where it also finds the
+    pushes' reverse arcs (``kernels.ops.min_neighbor_rev_kernel``)."""
     n = meta.n
     act = active_mask(state, n, s, t)
     avq = torch.nonzero_static(act, size=n, fill_value=n).view(-1).to(_I32)
     q_valid = avq < n
-    if minh_fn is None:
-        minh, argarc = _flat_frontier_minh(g, meta, state, avq, q_valid)
-    else:
-        minh, argarc = minh_fn(g, meta, state, avq, q_valid)
-    return _decide_apply(g, meta, state, avq, q_valid, minh, argarc, rev_fn)
+    fn = _flat_frontier_minh if minh_fn is None else minh_fn
+    return _decide_apply(g, meta, state, avq, q_valid,
+                         *fn(g, meta, state, avq, q_valid))
 
 
 #: modes whose hot loops run the CUDA kernels ('vc_fused' runs the whole
-#: discharge in one kernel; the others route the min search / reverse
-#: lookup through the min-search and reverse-search kernels)
+#: discharge in one kernel; the others route the min search, and in
+#: 'vc_kernel_bsearch' the reverse lookup with it, through the min-search
+#: kernel)
 KERNEL_MODES = ("vc_kernel", "vc_kernel_bsearch", "vc_fused")
 
 #: every step strategy of the JAX package, under the same names
@@ -230,8 +231,8 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def _make_step(mode: str) -> Callable:
     """Step factory: 'vc' (flat frontier, beyond-paper), 'vc_kernel'
-    (faithful warp-per-vertex min search), 'vc_kernel_bsearch' (faithful
-    BCSR: the min-search kernel + the binary-search reverse lookup).
+    (faithful min-search kernel), 'vc_kernel_bsearch' (faithful BCSR: the
+    min search and the binary-search reverse lookup in one launch).
     'vc_fused' is not a per-cycle step: ``run_cycles`` drives it as K
     cycles per launch (``repro_torch.kernels.discharge``)."""
     if mode == "vc":
@@ -245,11 +246,9 @@ def _make_step(mode: str) -> Callable:
         raise ValueError(f"unknown mode {mode!r}")
     from repro_torch.kernels import ops as kops
 
-    minh_fn = kops.min_neighbor_minh_fn()
     if mode == "vc_kernel":
-        return functools.partial(vc_step, minh_fn=minh_fn)
-    return functools.partial(vc_step, minh_fn=minh_fn,
-                             rev_fn=kops.rev_lookup_bsearch)
+        return functools.partial(vc_step, minh_fn=kops.min_neighbor_minh_fn())
+    return functools.partial(vc_step, minh_fn=kops.min_neighbor_rev_kernel)
 
 
 # ---------------------------------------------------------------------------

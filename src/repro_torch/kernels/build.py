@@ -5,9 +5,10 @@ points, :data:`SIGNATURES`) and is compiled by ``nvcc`` for ``sm_90a``
 into its own shared library, loaded with ``ctypes``.  A library is built
 at first use into ``build/repro_torch/`` at the root of the checkout (for
 an installed package, which has no checkout, into ``repro_torch/`` under
-``$XDG_CACHE_HOME`` or ``~/.cache``) and named by a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is loaded as it
-is.
+``$XDG_CACHE_HOME`` or ``~/.cache``) and named by a hash of its source, of
+every ``csrc/*.cuh`` header the source includes (directly or through
+another header), and of the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.
 :func:`build_all` starts one ``nvcc`` per source, all at once.  A failed
 build raises; nothing falls back to the plain PyTorch versions.
 
@@ -20,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -53,6 +55,9 @@ SIGNATURES = {
         # avq|NULL, indptr, heads, res, h, minh, argarc, batch, q, n, a,
         # stream
         "tile_min_neighbor_gather_launch": (_P,) * 7 + (_I,) * 4 + (_P,),
+        # avq, indptr, heads, tails, res, h, minh, argarc, rev, batch, q, n,
+        # a, steps, stream
+        "tile_min_neighbor_gather_rev_launch": (_P,) * 9 + (_I,) * 5 + (_P,),
     },
     # arcs, indptr, heads, tails, out, batch, p, n, a, steps, stream
     "revsearch": {"bcsr_rev_search_launch": (_P,) * 5 + (_I,) * 5 + (_P,)},
@@ -78,10 +83,27 @@ def _nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"/]+\.cuh)"', re.M)
+
+
+def sources(name: str) -> dict[str, bytes]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly
+    or through another header, by file name."""
+    out: dict[str, bytes] = {}
+    todo = [f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f not in out:
+            out[f] = (CSRC / f).read_bytes()
+            todo += [m.decode() for m in _INCLUDE.findall(out[f])]
+    return out
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f, text in sorted(sources(name).items()):
+        digest.update(f"\0{f}\0{len(text)}\0".encode() + text)
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, str]:

@@ -2,55 +2,48 @@
 // found by binary search for u in v's head-sorted BCSR segment.
 //
 // Replaces the Pallas TPU kernel repro/kernels/revsearch.py
-// (bcsr_rev_search, body _kernel).  Contract, bit for bit: the same
-// `steps` = max(1, bit_length(deg_max)) lock-step halvings of a
-// lower-bound search over [indptr[v], indptr[v+1]), each probe index
-// clamped to A-1; the result is A where a >= A or u is not found.
+// (bcsr_rev_search, body _kernel), bit for bit: the search itself is
+// revsearch.cuh's, whose note states the contract.  No solver path
+// launches this entry: the paper-faithful cycle folds the same search into
+// the min search (segmin.cu, tile_min_neighbor_gather_rev_launch).  It
+// stays as the TPU kernel's own function and the yardstick of that fold.
 //
-// Bound on an H100 (3.35 TB/s): memory, and latency in practice.  Per
-// push it must read the arc id, its tail and head, two indptr words and
-// one head per halving, and write the result: 4 * (7 + steps) bytes.
-// The probes are dependent random loads.
+// Bound on an H100 (3.35 TB/s): memory.  Every lane reads its arc and
+// writes its result (8 bytes); a push also reads its tail and head, two
+// indptr words and its probes of v's segment.  On the solver's queues most
+// lanes hold no push (the sentinel A), so the bound is mostly the pass
+// over the lanes, and the pushes add a chain of dependent loads.
 //
-// Design: one thread per push arc, running the reference's search as it
-// stands (no early exit, so the probe sequence is the reference's).  The
-// probes hit v's segment, which for the degrees this solver sees is one
-// or two cache lines, so the halvings after the first mostly hit L1/L2.
-// blockIdx.y is the batch row, so a (B, P) call is one launch.
+// Design.  One lane a thread, a block of 256 lanes, blockIdx.y the batch
+// row, so a (B, P) call is one launch; row offsets are 64-bit.  A warp
+// ballots its lanes' valid arcs: a warp with none writes A and exits; the
+// others run the shared warp search, one push a thread, so each push's
+// chain of loads runs beside its warp's others.  Four lanes a thread with
+// 16-byte accesses on a grid of 4 blocks a SM measured 19-24 % slower:
+// a thread's four searches made one longer chain.
 #include <cuda_runtime.h>
+
+#include "revsearch.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void bcsr_rev_search_kernel(const int* __restrict__ arcs,
-                                       const int* __restrict__ indptr,
-                                       const int* __restrict__ heads,
-                                       const int* __restrict__ tails,
-                                       int* __restrict__ out, int p, int n,
-                                       int a, int steps) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= p) return;
+__global__ void __launch_bounds__(kThreads)
+    bcsr_rev_search_kernel(const int* __restrict__ arcs,
+                           const int* __restrict__ indptr,
+                           const int* __restrict__ heads,
+                           const int* __restrict__ tails,
+                           int* __restrict__ out, int p, int n, int a,
+                           int steps) {
   const long long b = blockIdx.y;
-  const int* ip = indptr + b * (n + 1);
-  const int* hd = heads + b * a;
-  const int arc = arcs[b * p + i];
-  int result = a;
-  if (arc >= 0 && arc < a) {
-    const int u = tails[b * a + arc];  // push tail
-    const int v = hd[arc];             // the reverse arc lives in v's segment
-    int lo = ip[v];
-    int hi = ip[v + 1];
-    const int end = hi;
-    for (int s = 0; s < steps; ++s) {
-      const int mid = (lo + hi) / 2;
-      const bool right = hd[min(mid, a - 1)] < u;
-      lo = right ? mid + 1 : lo;
-      hi = right ? hi : mid;
-    }
-    if (lo < end && hd[min(lo, a - 1)] == u) result = lo;
-  }
-  out[b * p + i] = result;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  // lanes past p stay for the warp's search, with no arc
+  const int arc = i < p ? __ldg(arcs + b * p + i) : -1;
+  const int r = revsearch::warp_rev_search(
+      arc >= 0 && arc < a, arc, indptr + b * (n + 1), heads + b * a,
+      tails + b * a, a, steps);
+  if (i < p) out[b * p + i] = r;
 }
 
 }  // namespace

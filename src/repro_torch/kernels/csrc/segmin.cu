@@ -5,19 +5,27 @@
 // (tile_min_neighbor, bodies _kernel / _dense_kernel / _reduce_segment).
 // Contract, bit for bit: (INF = 2^30, A) when u < 0 or u >= n, the segment
 // is empty or every key is >= INF; avq == NULL is the dense form, where the
-// entry index itself is the vertex (avq == arange(n)).  Two entry points
+// entry index itself is the vertex (avq == arange(n)).  Three entry points
 // share every body: tile_min_neighbor_launch reads the key from an array
 // (the TPU kernel's own function), tile_min_neighbor_gather_launch forms it
 // in registers, key = res[i] > 0 ? h[clamp(heads[i], 0, n-1)] : INF, so
-// the A-word key array is never written.
+// the A-word key array is never written, and
+// tile_min_neighbor_gather_rev_launch (AVQ form only) adds a third output:
+// for each entry that pushes (valid, minh < INF and h[u] > minh, the
+// solver's push decision) the reverse arc of its push arc argarc, by the
+// TPU kernel repro/kernels/revsearch.py (bcsr_rev_search)'s search
+// (revsearch.cuh), and A for every other slot.  That is the
+// paper-faithful BCSR cycle's whole search in one launch.
 //
 // Bound on an H100 (3.35 TB/s): memory.  Dense form: indptr once, every
 // key once (gather: every res, heads only where res > 0, and h once for
 // each distinct head among those) and 8 bytes of output per vertex.  AVQ
 // form: the queue and two outputs per slot (12 bytes), two indptr words
 // per live entry and the live entries' frontier keys (gather: their res,
-// heads where res > 0, h once per distinct such head).  No arithmetic
-// worth counting.
+// heads where res > 0, h once per distinct such head).  The rev entry adds
+// 4 bytes of rev a slot, h[u] of each entry with a key below INF, and per
+// push its tail, two indptr words and the distinct heads its search
+// probes (its head is read already).  No arithmetic worth counting.
 //
 // Every minimum is the unsigned minimum of a packed 64-bit (biased key <<
 // 32 | arc): the smallest key and, among equal keys, the smallest arc —
@@ -38,14 +46,21 @@
 //   only lengthens its tile's loop.  indptr must be nondecreasing (a CSR).
 // * AVQ form: a warp takes 32 consecutive queue slots (one coalesced
 //   load), ballots the valid entries and writes (INF, A) for the others; a
-//   warp with none does nothing more.  A valid entry's lane walks a segment
-//   of up to 32 arcs itself; the whole warp strides each longer segment,
-//   found by a second ballot, and reduces it with shuffles.  Valid entries
-//   need not form a prefix.
+//   warp with none does nothing more.  Neighbouring warps' slots fall on
+//   different SMs, since an AVQ holds its entries in a prefix.  A valid
+//   entry's lane walks a segment of up to 32 arcs itself; the whole warp
+//   strides each longer segment, found by a second ballot, and reduces it
+//   with shuffles.  Valid entries need not form a prefix.  In the rev
+//   entry the same warp then decides its lanes' pushes from the minimum it
+//   holds in registers (h[u] loaded during the walk) and runs the shared
+//   warp search over them: the push arcs never go through memory, and no
+//   second launch or n-lane select is needed.
 // blockIdx.y is the batch row, so a (B, Q) call is one launch; row offsets
 // b * a, b * n, b * (n + 1), b * q are 64-bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "revsearch.cuh"
 
 namespace {
 
@@ -72,6 +87,17 @@ __device__ __forceinline__ void store(const unsigned long long best,
                     : kInf;
   argarc[out] = found ? static_cast<int>(best & 0xffffffffu) : a;
 }
+
+// the rev entry's own operands: heads, tails and heights to decide a push
+// and find its reverse arc, the rev output and the search's halvings (all
+// NULL, and unused, in the other entries)
+struct Rev {
+  const int* heads;
+  const int* tails;
+  const int* h;
+  int* rev;
+  int steps;
+};
 
 // the key of arc i of one row, read from an array
 struct KeyIn {
@@ -150,21 +176,26 @@ __global__ void __launch_bounds__(kTile)
   }
 }
 
-template <class Key>
+template <class Key, bool kRev>
 __global__ void __launch_bounds__(kAvqThreads)
     avq_kernel(const int* __restrict__ avq, const int* __restrict__ indptr,
-               const Key key_rows, int* __restrict__ minh,
+               const Key key_rows, const Rev rv, int* __restrict__ minh,
                int* __restrict__ argarc, int q, int n, int a) {
   const long long b = blockIdx.y;
   const int lane = threadIdx.x & 31;
-  const int slot = blockIdx.x * kAvqThreads + threadIdx.x;
+  // warp g of the grid takes slots 32g..32g+31, g counting blocks first,
+  // so that a queue's valid prefix is spread over every SM
+  const int slot = ((threadIdx.x / 32) * gridDim.x + blockIdx.x) * 32 + lane;
   const long long out = b * q + slot;
   const bool in = slot < q;
   const int u = in ? __ldg(avq + out) : -1;
   const bool valid = u >= 0 && u < n;
   const unsigned long long none = pack(kInf, a);
   if (__ballot_sync(kFull, valid) == 0) {
-    if (in) store(none, none, minh, argarc, out, a);
+    if (in) {
+      store(none, none, minh, argarc, out, a);
+      if constexpr (kRev) rv.rev[out] = a;
+    }
     return;  // uniform across the warp
   }
   const int* ip = indptr + b * (n + 1);
@@ -174,6 +205,9 @@ __global__ void __launch_bounds__(kAvqThreads)
     lo = __ldg(ip + u);
     hi = __ldg(ip + u + 1);
   }
+  // the rev entry's h[u], in flight during the segment walk
+  int hu = 0;
+  if constexpr (kRev) hu = valid ? __ldg(rv.h + b * n + u) : 0;
   const bool wide = hi - lo > 32;
   unsigned long long best = none;
   if (!wide) {
@@ -199,11 +233,21 @@ __global__ void __launch_bounds__(kAvqThreads)
     if (lane == src) best = w;
   }
   if (in) store(best, none, minh, argarc, out, a);
+  if constexpr (kRev) {
+    // best != none: u is valid and minh < INF; then a push if h[u] > minh
+    const int mh = static_cast<int>(static_cast<unsigned>(best >> 32) ^
+                                    0x80000000u);
+    const int r = revsearch::warp_rev_search(
+        best != none && hu > mh, static_cast<int>(best & 0xffffffffu), ip,
+        rv.heads + b * a, rv.tails + b * a, a, rv.steps);
+    if (in) rv.rev[out] = r;
+  }
 }
 
-template <class Key>
-int launch(const int* avq, const int* indptr, const Key& key, int* minh,
-           int* argarc, int batch, int q, int n, int a, void* stream) {
+template <bool kRev = false, class Key>
+int launch(const int* avq, const int* indptr, const Key& key, const Rev& rv,
+           int* minh, int* argarc, int batch, int q, int n, int a,
+           void* stream) {
   if (batch > 0 && q > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (avq == nullptr) {
@@ -212,8 +256,8 @@ int launch(const int* avq, const int* indptr, const Key& key, int* minh,
                                                 n, a);
     } else {
       const dim3 grid((q + kAvqThreads - 1) / kAvqThreads, batch);
-      avq_kernel<Key><<<grid, kAvqThreads, 0, st>>>(avq, indptr, key, minh,
-                                                    argarc, q, n, a);
+      avq_kernel<Key, kRev><<<grid, kAvqThreads, 0, st>>>(
+          avq, indptr, key, rv, minh, argarc, q, n, a);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -228,8 +272,8 @@ extern "C" int tile_min_neighbor_launch(const int* avq, const int* indptr,
                                         const int* key, int* minh,
                                         int* argarc, int batch, int q, int n,
                                         int a, void* stream) {
-  return launch(avq, indptr, KeyIn{key}, minh, argarc, batch, q, n, a,
-                stream);
+  return launch(avq, indptr, KeyIn{key}, Rev{}, minh, argarc, batch, q, n,
+                a, stream);
 }
 
 // As tile_min_neighbor_launch with the key formed from res, heads: (batch,
@@ -238,6 +282,20 @@ extern "C" int tile_min_neighbor_gather_launch(
     const int* avq, const int* indptr, const int* heads, const int* res,
     const int* h, int* minh, int* argarc, int batch, int q, int n, int a,
     void* stream) {
-  return launch(avq, indptr, KeyGather{res, heads, h, n}, minh, argarc,
-                batch, q, n, a, stream);
+  return launch(avq, indptr, KeyGather{res, heads, h, n}, Rev{}, minh,
+                argarc, batch, q, n, a, stream);
+}
+
+// As tile_min_neighbor_gather_launch in the AVQ form (avq must not be
+// NULL), with tails: (batch, a) and a third output rev: (batch, q), the
+// reverse arc of each entry's push arc (A where it does not push or the
+// arc is not found), by `steps` halvings.
+extern "C" int tile_min_neighbor_gather_rev_launch(
+    const int* avq, const int* indptr, const int* heads, const int* tails,
+    const int* res, const int* h, int* minh, int* argarc, int* rev,
+    int batch, int q, int n, int a, int steps, void* stream) {
+  if (avq == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(avq, indptr, KeyGather{res, heads, h, n},
+                      Rev{heads, tails, h, rev, steps}, minh, argarc, batch,
+                      q, n, a, stream);
 }

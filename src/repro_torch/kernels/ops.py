@@ -6,9 +6,8 @@ PyTorch version for CPU tensors, so these hooks need no device argument.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import ref as kref
-from repro_torch.kernels.revsearch import bcsr_rev_search
-from repro_torch.kernels.segmin import tile_min_neighbor_gather
+from repro_torch.kernels.segmin import (tile_min_neighbor_gather,
+                                        tile_min_neighbor_gather_rev)
 
 
 def min_neighbor_kernel(g, meta, state, avq, q_valid):
@@ -32,16 +31,18 @@ def min_neighbor_minh_fn():
     return min_neighbor_kernel
 
 
-def rev_lookup_bsearch(g, meta, arcs):
-    """Reverse-arc lookup via the paper's BCSR binary search kernel."""
-    if meta.layout != "bcsr":
+def min_neighbor_rev_kernel(g, meta, state, avq, q_valid):
+    """The paper-faithful BCSR cycle's search (``vc_kernel_bsearch``):
+    :func:`min_neighbor_kernel` and, in the same launch of the min
+    search's rev entry, the reverse arc of each entry that pushes, found by
+    the BCSR binary search.  Returns ``(minh, argarc, rev)``, ``rev == A``
+    where the entry does not push or the arc is not found, which
+    ``pushrelabel._decide_apply`` takes as it is.  AVQ form only; 1-D or
+    batched ``(B, ·)`` states, as :func:`min_neighbor_kernel`."""
+    if meta.layout not in ("bcsr", "batched-bcsr"):
         raise ValueError(
             f"binary search requires head-sorted (bcsr) segments, got "
             f"layout {meta.layout!r}")
-    return bcsr_rev_search(arcs, g.indptr, g.heads, g.tails,
-                           deg_max=meta.deg_max)
-
-
-def rev_lookup_table(g, meta, arcs):
-    """Beyond-paper variant: precomputed rev index (O(E) ints, no search)."""
-    return kref.rev_search_ref(arcs, g.rev, g.heads.shape[0])
+    return tile_min_neighbor_gather_rev(avq, g.indptr, g.heads, g.tails,
+                                        state.res, state.h, n=meta.n,
+                                        deg_max=meta.deg_max)

@@ -8,6 +8,11 @@ lower-bound search for ``u`` in ``v``'s head-sorted segment; ``A`` where
 ``a`` is outside ``[0, A)`` or the arc is not found.  1-D inputs are one
 instance; ``(B, ·)`` rows are one launch with the batch on ``grid.y``.
 
+No solver path calls this entry: the paper-faithful cycle runs the same
+search (``csrc/revsearch.cuh``) inside the min search's rev entry,
+``segmin.tile_min_neighbor_gather_rev``.  It stays as the TPU kernel's own
+function, the yardstick of that fold.
+
 CUDA tensors launch the kernel on the current stream (or raise); CPU
 tensors take the plain version, :func:`repro_torch.kernels.ref.
 rev_search_bsearch_ref`.  ``bcsr_rev_search.launches`` counts kernel

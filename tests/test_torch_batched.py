@@ -139,6 +139,64 @@ def test_batched_solve_matches_jax_batched_vc(layout, mode):
     assert got.maxflows.tolist() == oracle
 
 
+@pytest.mark.parametrize("budget", [1, 4, 9])
+def test_batched_bsearch_cycles_match_jax_vc(budget):
+    """``budget`` batched ``vc_kernel_bsearch`` cycles, each one launch of
+    the min search's rev entry over every row, == the JAX batched ``vc``
+    driver's from the same post-relabel state: padded state and
+    per-instance cycles."""
+    js, ts, _ = _instances(9, "bcsr", k=3, trivial=True)
+    jbg, jmeta, jres0, _ = jb.pack_instances(list(js))
+    tbg, tmeta, tres0, _ = tb.pack_instances(list(ts), device="cpu")
+    jstate = jb.batched_global_relabel(
+        jbg, jmeta, jb.batched_preflow(jbg, jmeta, jres0))[0]
+    tstate = tb.batched_global_relabel(
+        tbg, tmeta, tb.batched_preflow(tbg, tmeta, tres0))[0]
+    want, wcyc = jb.batched_run_cycles(jbg, jmeta, jstate, mode="vc",
+                                       max_cycles=16, budget=budget)
+    got, gcyc = tb.batched_run_cycles(tbg, tmeta, tstate,
+                                      mode="vc_kernel_bsearch",
+                                      max_cycles=16, budget=budget)
+    assert 0 < int(gcyc.max()) <= budget
+    _same(wcyc, gcyc, "cycles")
+    for f in ("res", "h", "e"):
+        _same(getattr(want, f), getattr(got, f), f)
+
+
+def test_batched_bsearch_step_is_one_fused_search(monkeypatch):
+    """A batched ``vc_kernel_bsearch`` cycle makes one call of the min
+    search's rev entry for every row and none of the two-output min
+    search or of the standalone ``bcsr_rev_search``, and equals the
+    batched ``vc`` cycle."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import revsearch
+
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            calls.append((name, tuple(args[0].shape)))
+            return fn(*args, **kw)
+        return wrapped
+
+    for mod, name in ((kops, "tile_min_neighbor_gather"),
+                      (kops, "tile_min_neighbor_gather_rev"),
+                      (revsearch, "bcsr_rev_search")):
+        monkeypatch.setattr(mod, name, spy(name, getattr(mod, name)))
+    _, ts, _ = _instances(7, "bcsr", k=3)
+    bg, meta, res0, _ = tb.pack_instances(list(ts), device="cpu")
+    state = tb.batched_global_relabel(
+        bg, meta, tb.batched_preflow(bg, meta, res0))[0]
+    for _ in range(3):
+        calls.clear()
+        new = tb._kernel_batch_step(bg, meta, state, "vc_kernel_bsearch")
+        assert calls == [("tile_min_neighbor_gather_rev", (3, meta.n))]
+        want = tb._kernel_batch_step(bg, meta, state, "vc")
+        for f in ("res", "h", "e"):
+            assert torch.equal(getattr(new, f), getattr(want, f)), f
+        state = new
+
+
 @pytest.mark.parametrize("telemetry", [False, True])
 def test_batched_vc_fused_matches_jax_fused_driver(telemetry, monkeypatch):
     """The port's batched ``vc_fused`` == the JAX batched ``vc_fused``

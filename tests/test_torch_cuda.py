@@ -17,10 +17,13 @@ from repro_torch.core.ref_maxflow import dinic_maxflow
 from repro_torch.graphs.generators import random_sparse, washington_rlg
 from repro_torch.kernels import discharge as tdis
 from repro_torch.kernels import ref as kref
+from repro_torch.core import pushrelabel as tpr
 from repro_torch.kernels.revsearch import bcsr_rev_search, search_steps
 from repro_torch.kernels.segmin import (tile_min_neighbor,
                                         tile_min_neighbor_gather,
                                         tile_min_neighbor_gather_plain,
+                                        tile_min_neighbor_gather_rev,
+                                        tile_min_neighbor_gather_rev_plain,
                                         tile_min_neighbor_plain)
 
 INF = kref.INF
@@ -225,6 +228,161 @@ def test_revsearch_kernel_matches_plain_and_rev_table(cuda, batched):
         assert torch.equal(got[real], want[real])
 
 
+def _rev_case():
+    """A BCSR residual with a hub (vertex 1, 3000 arcs: 12 halvings,
+    probes far apart) and a vertex of 60 arcs (vertex 2, wider than a
+    warp), with runs of duplicate heads in both segments and, in vertex
+    2's, the arc back to 3100 moved away (its reverse is absent); with three
+    states (rows) that push into and out of both.  Each queue starts with
+    the 59 other spokes of vertex 2, so that a warp's searches share one
+    segment.  Returns numpy ``(indptr, heads, tails, res, h, avq)`` of
+    ``(3, ·)`` rows, ``n`` and ``deg_max``."""
+    rng = np.random.default_rng(3)
+    n = 3200
+    edges = np.concatenate([
+        rng.integers(3, 3100, size=(3000, 2)),
+        np.stack([np.ones(3000, np.int64), np.arange(100, 3100)], 1),
+        np.stack([np.full(60, 2), np.arange(3100, 3160)], 1)])
+    r = build_residual(Graph(n, edges, np.ones(len(edges), np.int64)),
+                       "bcsr")
+    heads = r.heads.copy()
+    for v, at in ((1, 500), (1, 2500), (2, 20)):
+        lo = r.indptr[v]
+        heads[lo + at:lo + at + 6] = heads[lo + at]
+    heads[r.indptr[2]] = n - 1  # the arc 2 -> 3100
+    rows = []
+    for b in range(3):
+        res = rng.integers(-1, 3, size=r.num_arcs)
+        res[np.isin(heads, (1, 2))] = 1
+        h = rng.integers(1, 12, size=n)
+        h[[1, 2]] = 0
+        rest = np.unique(np.concatenate([
+            [1, 2, 3100], rng.choice(np.arange(100, 3100), 400,
+                                     replace=False),
+            rng.choice(np.arange(3, 100), 50)]))
+        avq = np.full(n, n)
+        avq[:59] = np.arange(3101, 3160)
+        avq[59:59 + rest.size] = rng.permutation(rest)
+        rows.append((res, h, avq))
+    res, h, avq = (np.stack(x) for x in zip(*rows))
+    graph = [np.stack([x] * 3) for x in (r.indptr, heads, r.tails)]
+    return (*graph, res, h, avq), n, r.deg_max
+
+
+def _random_rev_rows(dev):
+    """:func:`_rows`' graphs (a hub of 1100 arcs) with random residuals,
+    heights and queues of distinct vertices padded with ``n``, on ``dev``:
+    ``(indptr, heads, tails, rev, res, h, avq)``, ``n`` and ``deg_max``."""
+    (indptr, heads, tails, rev), a, deg_max = _rows(3, 60)
+    rng = np.random.default_rng(61)
+    n = indptr.shape[1] - 1
+    res = rng.integers(-1, 3, size=(3, a))
+    h = rng.integers(0, 9, size=(3, n))
+    avq = np.full((3, n), n)
+    for b in range(3):
+        avq[b, :900] = rng.choice(n, 900, replace=False)
+    return ([_t(x, dev) for x in (indptr, heads, tails, rev, res, h, avq)],
+            n, deg_max)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_gather_rev_kernel_matches_plain(cuda, batched):
+    """The min search's rev entry against its plain version, one launch a
+    call and none of the other entries: a hub of 3000 arcs, duplicate
+    heads, a missing reverse arc, a warp whose searches share one segment,
+    and random graphs; on well-formed rows ``rev`` is
+    the ``rev`` table at each push."""
+    sl = slice(None) if batched else 0
+    arrays, n, deg_max = _rev_case()
+    indptr, heads, tails, res, h, avq = (_t(x[sl], cuda) for x in arrays)
+    cases = [((avq, indptr, heads, tails, res, h), n, deg_max, None)]
+    (ip2, hd2, tl2, rv2, res2, h2, avq2), n2, dm2 = _random_rev_rows(cuda)
+    cases.append(((avq2[sl], ip2[sl], hd2[sl], tl2[sl], res2[sl], h2[sl]),
+                  n2, dm2, rv2[sl]))
+    for args, n_, dm, rev in cases:
+        before = (tile_min_neighbor_gather_rev.launches,
+                  tile_min_neighbor_gather.launches, bcsr_rev_search.launches)
+        got = tile_min_neighbor_gather_rev(*args, n=n_, deg_max=dm)
+        assert (tile_min_neighbor_gather_rev.launches,
+                tile_min_neighbor_gather.launches,
+                bcsr_rev_search.launches) == (before[0] + 1, *before[1:])
+        want = tile_min_neighbor_gather_rev_plain(*args, n=n_,
+                                                  steps=search_steps(dm))
+        _same(tuple(got), tuple(want))
+        a = args[2].shape[-1]
+        pushes = got[2] < a
+        assert bool(pushes.any())
+        if rev is not None:  # well-formed: every push finds its reverse
+            hu = torch.gather(args[5], -1,
+                              torch.clamp(args[0], 0, n_ - 1).long())
+            push = (args[0] < n_) & (got[0] < INF) & (hu > got[0])
+            assert torch.equal(push, pushes)
+            assert torch.equal(got[2][push], torch.gather(
+                rev, -1, torch.clamp(got[1], 0, a - 1).long())[push])
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_revsearch_redesign_edge_cases(cuda, batched):
+    """The standalone reverse search against its plain version on the
+    rev entry's edge cases (the push arcs of :func:`_rev_case` among
+    random arcs, ``< 0`` and ``>= A`` sentinels): rows of ``P`` lanes with
+    ``P`` a multiple of the block and not, and rows that start off any
+    alignment."""
+    arrays, n, deg_max = _rev_case()
+    indptr, heads, tails, res, h, avq = (_t(x, cuda) for x in arrays)
+    _, argarc, rev = tile_min_neighbor_gather_rev(avq, indptr, heads, tails,
+                                                  res, h, n=n,
+                                                  deg_max=deg_max)
+    a = heads.shape[-1]
+    rng = np.random.default_rng(71)
+    steps = search_steps(deg_max)
+    for p in (4096, 4099):
+        arcs = _t(rng.integers(-3, a + 3, size=(3, p)), cuda)
+        arcs[:, :n // 2] = torch.where(rev < a, argarc, a)[:, :n // 2]
+        for rows in ((slice(None),) if batched else (0, 1)):
+            args = (arcs[rows], indptr[rows], heads[rows], tails[rows])
+            before = bcsr_rev_search.launches
+            got = bcsr_rev_search(*args, deg_max=deg_max)
+            assert bcsr_rev_search.launches == before + 1
+            _same(got, kref.rev_search_bsearch_ref(*args, steps=steps))
+
+
+@pytest.mark.parametrize("backend", ["single", "batched"])
+def test_bsearch_cycle_launches_the_rev_entry_once(cuda, backend):
+    """A ``vc_kernel_bsearch`` cycle is one launch of the min search's
+    rev entry, with no launch of the two-output entry or of
+    ``bcsr_rev_search``, and equals the plain ``vc`` cycle on the CPU."""
+    probs = [MaxflowProblem(*washington_rlg(24, 24, seed=s)) for s in (3, 4)]
+    states = {}
+    for dev in ("cuda", "cpu"):
+        if backend == "single":
+            r = probs[0].residual("bcsr")
+            g, meta, res0 = tpr.to_device(r, dev)
+            st = tpr.preflow(g, meta, res0, probs[0].s)
+            states[dev] = (g, meta, st)
+        else:
+            bg, meta, res0, _ = tb.pack_instances(
+                [(p.residual("bcsr"), p.s, p.t) for p in probs], device=dev)
+            states[dev] = (bg, meta, tb.batched_preflow(bg, meta, res0))
+    g, meta, st = states["cuda"]
+    gc, metac, stc = states["cpu"]
+    for _ in range(4):
+        before = (tile_min_neighbor_gather_rev.launches,
+                  tile_min_neighbor_gather.launches, bcsr_rev_search.launches)
+        if backend == "single":
+            s, t = probs[0].s, probs[0].t
+            st = tpr._make_step("vc_kernel_bsearch")(g, meta, st, s, t)
+            stc = tpr.vc_step(gc, metac, stc, s, t)
+        else:
+            st = tb._kernel_batch_step(g, meta, st, "vc_kernel_bsearch")
+            stc = tb._kernel_batch_step(gc, metac, stc, "vc")
+        assert (tile_min_neighbor_gather_rev.launches,
+                tile_min_neighbor_gather.launches,
+                bcsr_rev_search.launches) == (before[0] + 1, *before[1:])
+        for x, y in zip(st, stc):
+            assert torch.equal(x.cpu(), y)
+
+
 @pytest.mark.parametrize("backend", ["single", "batched"])
 @pytest.mark.parametrize("mode", ["vc_kernel", "vc_kernel_bsearch"])
 def test_kernel_mode_solve_matches_cpu(cuda, mode, backend):
@@ -242,10 +400,17 @@ def test_kernel_mode_solve_matches_cpu(cuda, mode, backend):
             return solver.solve_many(probs)
         return [solver.solve(p) for p in probs]
 
+    before_rev = (tile_min_neighbor_gather_rev.launches,
+                  bcsr_rev_search.launches)
     on_card, on_cpu = run(mode, "cuda"), run("vc", "cpu")
-    # the solver's hook builds no key: the key-in entry never launches
+    # the solver's hook builds no key: the key-in entry never launches;
+    # bsearch's cycles launch the rev entry, and no solve the standalone
+    # reverse search
     assert tile_min_neighbor.launches == before[0]
     assert tile_min_neighbor_gather.launches > before[1]
+    assert (tile_min_neighbor_gather_rev.launches > before_rev[0]) == (
+        mode == "vc_kernel_bsearch")
+    assert bcsr_rev_search.launches == before_rev[1]
     for a, b in zip(on_card, on_cpu):
         assert a.value == b.value
         for f in ("cycles", "rounds", "global_relabels", "gr_sweeps"):

@@ -3,9 +3,12 @@ package's oracles on the same numpy inputs: ``tile_min_neighbor`` (AVQ and
 dense forms, 1-D and ``(B, ·)``) and its key-gathering entry
 ``tile_min_neighbor_gather`` against ``repro.kernels.ref.
 min_neighbor_ref`` and the XLA ``_flat_frontier_minh``, ``bcsr_rev_search``
-against the build-time ``rev`` table.  The reference's own Pallas kernels do
-not run on this jax; its tests prove these oracles equal to them.  On the
-CPU each wrapper takes its plain PyTorch version and launches nothing.
+against the build-time ``rev`` table, and the rev entry
+``tile_min_neighbor_gather_rev`` against the composition of the JAX min
+search, the JAX push decision and the reverse search.  The reference's own
+Pallas kernels do not run on this jax; its tests prove these oracles equal
+to them.  On the CPU each wrapper takes its plain PyTorch version and
+launches nothing.
 Tolerance: exact equality (int32 throughout).  The CUDA kernels against
 their plain versions on the card: ``tests/test_torch_cuda.py``."""
 import dataclasses
@@ -21,9 +24,10 @@ from repro.core import pushrelabel as jpr
 from repro.core.csr import Graph, build_residual
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.revsearch import bcsr_rev_search
+from repro_torch.kernels.revsearch import bcsr_rev_search, search_steps
 from repro_torch.kernels.segmin import (tile_min_neighbor,
-                                        tile_min_neighbor_gather)
+                                        tile_min_neighbor_gather,
+                                        tile_min_neighbor_gather_rev)
 from tests.conftest import random_graph
 
 INF = int(jref.INF)
@@ -255,6 +259,7 @@ def test_cpu_wrappers_launch_nothing():
         return (tile_min_neighbor.launches, tile_min_neighbor.dense_launches,
                 tile_min_neighbor_gather.launches,
                 tile_min_neighbor_gather.dense_launches,
+                tile_min_neighbor_gather_rev.launches,
                 bcsr_rev_search.launches)
 
     before = counts()
@@ -262,9 +267,12 @@ def test_cpu_wrappers_launch_nothing():
         tile_min_neighbor(q, _t(r.indptr), _t(key), n=meta.n)
         tile_min_neighbor_gather(q, _t(r.indptr), _t(r.heads),
                                  _t(state.res), _t(state.h), n=meta.n)
+    tile_min_neighbor_gather_rev(_t(avq), _t(r.indptr), _t(r.heads),
+                                 _t(r.tails), _t(state.res), _t(state.h),
+                                 n=meta.n, deg_max=meta.deg_max)
     bcsr_rev_search(_t(np.arange(4)), _t(r.indptr), _t(r.heads),
                     _t(r.tails), deg_max=meta.deg_max)
-    assert counts() == before == (0,) * 5
+    assert counts() == before == (0,) * 6
 
 
 def test_wrappers_reject_bad_operands():
@@ -343,28 +351,217 @@ def test_frontier_rows_is_truncated_repeat():
 
 @pytest.mark.parametrize("layout", ["bcsr", "rcsr"])
 def test_rev_lookup_hooks(layout):
-    """``ops.rev_lookup_bsearch`` (BCSR only) and ``ops.rev_lookup_table``
-    both give the JAX package's ``rev`` table, ``A`` for arcs >= A."""
+    """The reverse lookup's hook, ``ops.min_neighbor_rev_kernel`` (BCSR
+    only): its ``(minh, argarc)`` are ``ops.min_neighbor_kernel``'s, and
+    its ``rev`` is the JAX package's ``rev`` table at each entry that
+    pushes and ``A`` at every other slot."""
     from repro_torch.core import pushrelabel as tpr
     from repro_torch.core.csr import residual_from_arrays
     from repro_torch.kernels import ops as kops
 
     g = random_graph(np.random.default_rng(77), n_lo=20, n_hi=40)
     rj = build_residual(g, layout)
-    gt, meta, _ = tpr.to_device(
+    gt, meta, res0 = tpr.to_device(
         residual_from_arrays(**dataclasses.asdict(rj)), "cpu")
-    a = meta.num_arcs
-    arcs = np.random.default_rng(5).integers(0, a + 4, size=2 * a)
-    want = _np(jref.rev_search_ref(jnp.asarray(arcs, jnp.int32),
-                                   jnp.asarray(rj.rev), a))
-    np.testing.assert_array_equal(
-        kops.rev_lookup_table(gt, meta, _t(arcs)).numpy(), want)
-    if layout == "bcsr":
-        np.testing.assert_array_equal(
-            kops.rev_lookup_bsearch(gt, meta, _t(arcs)).numpy(), want)
-    else:
+    n, a = meta.n, meta.num_arcs
+    st = tpr.preflow(gt, meta, res0, 0)
+    h = np.random.default_rng(5).integers(0, n + 2, size=n)
+    st = tpr.PRState(st.res, _t(h), st.e)
+    avq = torch.nonzero_static(tpr.active_mask(st, n, 0, n - 1), size=n,
+                               fill_value=n).view(-1).to(torch.int32)
+    if layout == "rcsr":
         with pytest.raises(ValueError, match="bcsr"):
-            kops.rev_lookup_bsearch(gt, meta, _t(arcs))
+            kops.min_neighbor_rev_kernel(gt, meta, st, avq, avq < n)
+        return
+    minh, argarc, rev = kops.min_neighbor_rev_kernel(gt, meta, st, avq,
+                                                     avq < n)
+    for g_, w in zip((minh, argarc),
+                     kops.min_neighbor_kernel(gt, meta, st, avq, avq < n)):
+        assert torch.equal(g_, w)
+    _, push = tpr._push_decision(st.h, torch.clamp(avq, max=n - 1), avq < n,
+                                 minh)
+    assert bool(push.any())
+    want = _np(jref.rev_search_ref(
+        jnp.asarray(torch.where(push, argarc, a).numpy()),
+        jnp.asarray(rj.rev), a))
+    np.testing.assert_array_equal(rev.numpy(), want)
+
+
+def _rev_case(seed: int):
+    """A BCSR residual of a random graph with a hub (vertex 1, 3000 arcs:
+    12 halvings, probes far apart) and a vertex of 60 arcs (vertex 2:
+    wider than a warp), then tampered: runs of duplicate heads
+    in both their segments, and in vertex 2's the head of the arc back to
+    vertex 3100 moved away, so that 3100's push to 2 finds no reverse arc.
+    Returns ``(residual, heads, n)``, ``heads`` the tampered copy."""
+    rng = np.random.default_rng(seed)
+    n = 3200
+    edges = np.concatenate([
+        rng.integers(3, 3100, size=(3000, 2)),
+        np.stack([np.ones(3000, np.int64), np.arange(100, 3100)], 1),
+        np.stack([np.full(60, 2), np.arange(3100, 3160)], 1)])
+    r = build_residual(Graph(n, edges, np.ones(len(edges), np.int64)),
+                       "bcsr")
+    heads = r.heads.copy()
+    for v, at in ((1, 500), (1, 2500), (2, 20)):
+        lo = r.indptr[v]
+        heads[lo + at:lo + at + 6] = heads[lo + at]
+    heads[r.indptr[2]] = n - 1  # the arc 2 -> 3100, the segment's first
+    assert r.heads[r.indptr[2]] == 3100
+    return r, heads, n
+
+
+def _rev_state(r, heads, n, seed):
+    """A residual, heights and queue that push into the hub, into vertex 2
+    and out of both: ``h`` is 0 at vertices 1 and 2 and every arc into
+    them has residual; the queue holds the hub, vertex 2, their spokes and
+    random vertices, padded with ``n``."""
+    rng = np.random.default_rng(seed)
+    res = rng.integers(-1, 3, size=r.num_arcs)
+    res[np.isin(heads, (1, 2))] = 1
+    h = rng.integers(1, 12, size=n)
+    h[[1, 2]] = 0
+    live = np.unique(np.concatenate([
+        [1, 2, 3100], rng.choice(np.arange(100, 3100), 400, replace=False),
+        np.arange(3101, 3160), rng.choice(np.arange(3, 100), 50)]))
+    avq = np.full(n, n)
+    avq[:live.size] = rng.permutation(live)
+    return res, h, avq
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_segmin_gather_rev_matches_composition(batched):
+    """The rev entry (its plain version on the CPU) == the JAX min search
+    and push decision followed by the reverse search on the push arcs
+    (``A`` where an entry does not push), on a hub of 3000 arcs, a
+    segment wider than a warp, duplicate heads and a push whose reverse
+    arc is absent (``A``); where the segments are untouched, ``rev`` is
+    the build-time table's."""
+    r, heads, n = _rev_case(3)
+    a = r.num_arcs
+    steps = search_steps(r.deg_max)
+    rows = [_rev_state(r, heads, n, 30 + b) for b in range(3 if batched
+                                                             else 1)]
+    res, h, avq = (np.stack(x) for x in zip(*rows))
+    graph = [np.stack([x] * len(rows)) for x in (r.indptr, heads, r.tails)]
+    args = [_t(x if batched else x[0]) for x in (avq, *graph)]
+    got = tile_min_neighbor_gather_rev(
+        args[0], *args[1:3], args[3], _t(res if batched else res[0]),
+        _t(h if batched else h[0]), n=n, deg_max=r.deg_max)
+    pushes_into = set()
+    for b in range(len(rows)):
+        key = np.where(res[b] > 0, h[b][np.clip(heads, 0, n - 1)], INF)
+        jm, ja = jref.min_neighbor_ref(jnp.asarray(avq[b], jnp.int32),
+                                       jnp.asarray(r.indptr),
+                                       jnp.asarray(key, jnp.int32), n=n)
+        _, push = jpr._push_decision(jnp.asarray(h[b], jnp.int32),
+                                     jnp.minimum(jnp.asarray(avq[b]), n - 1),
+                                     jnp.asarray(avq[b] < n), jm)
+        arcs = np.where(_np(push), np.clip(_np(ja), 0, a - 1), a)
+        want = tref.rev_search_bsearch_ref(_t(arcs), _t(r.indptr), _t(heads),
+                                           _t(r.tails), steps=steps)
+        row = [x[b] if batched else x for x in got]
+        for g_, w in zip(row, (_np(jm), _np(ja), want.numpy())):
+            np.testing.assert_array_equal(_np(g_), w)
+        p_arcs = arcs[_np(push)]
+        v = heads[p_arcs]
+        pushes_into |= set(v[np.isin(v, (1, 2))].tolist())
+        clean = ~np.isin(v, (1, 2))
+        np.testing.assert_array_equal(row[2].numpy()[_np(push)][clean],
+                                      r.rev[p_arcs[clean]])
+        # 3100's push into vertex 2 finds no reverse arc
+        at = np.flatnonzero(avq[b] == 3100)[0]
+        assert bool(push[at]) and heads[int(ja[at])] == 2
+        assert int(row[2][at]) == a
+    assert pushes_into == {1, 2}
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_segmin_gather_rev_random_instances(seed):
+    """On random BCSR instances (preflow residuals, random heights) the
+    rev entry's ``(minh, argarc)`` are the XLA min search's, and ``rev``
+    is the build-time table at each push arc, ``A`` elsewhere."""
+    r, dg, meta, state, avq, _ = _instance(seed)
+    n, a = meta.n, meta.num_arcs
+    fm, fa = jpr._flat_frontier_minh(dg, meta, state, avq, avq < n)
+    _, push = jpr._push_decision(state.h, jnp.minimum(avq, n - 1), avq < n,
+                                 fm)
+    got = tile_min_neighbor_gather_rev(_t(avq), _t(r.indptr), _t(r.heads),
+                                       _t(r.tails), _t(state.res),
+                                       _t(state.h), n=n, deg_max=r.deg_max)
+    want = jref.rev_search_ref(jnp.where(push, fa, a), dg.rev, a)
+    for g_, w in zip(got, (fm, fa, want)):
+        np.testing.assert_array_equal(g_.numpy(), _np(w))
+
+
+def test_gather_rev_wrapper_rejects_bad_operands():
+    """The rev entry has no dense form and checks ``tails`` like the
+    other arc arrays."""
+    ind, heads, res, h = _t([0, 1, 2]), _t([1, 0]), _t([1, 1]), _t([3, 4])
+    with pytest.raises(ValueError, match="no dense form"):
+        tile_min_neighbor_gather_rev(None, ind, heads, heads, res, h, n=2,
+                                     deg_max=1)
+    with pytest.raises(ValueError, match="tails has shape"):
+        tile_min_neighbor_gather_rev(_t([0, 1]), ind, heads, _t([0]), res,
+                                     h, n=2, deg_max=1)
+    with pytest.raises(TypeError, match="int32"):
+        tile_min_neighbor_gather_rev(_t([0, 1]), ind, heads, heads.long(),
+                                     res, h, n=2, deg_max=1)
+
+
+def test_rev_entry_is_in_signatures():
+    """``build.SIGNATURES`` declares the rev entry of ``csrc/segmin.cu``:
+    nine pointers, five ints (batch, q, n, a, steps) and the stream."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert build.SIGNATURES["segmin"]["tile_min_neighbor_gather_rev_launch"] \
+        == (p,) * 9 + (i,) * 5 + (p,)
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """A library's name covers its source and every ``csrc`` header it
+    includes, directly or through another header: an edit to either
+    names a new library, an edit to a header it does not include does
+    not."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                                   '#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n #include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "c.cuh").write_text("// c\n")
+    assert sorted(build.sources("k")) == ["a.cuh", "b.cuh", "k.cu"]
+    seen = {build.library_path("k")}
+    (tmp_path / "c.cuh").write_text("// c, edited\n")
+    assert build.library_path("k") in seen
+    for f in ("b.cuh", "a.cuh", "k.cu"):
+        (tmp_path / f).write_text((tmp_path / f).read_text() + "// edit\n")
+        path = build.library_path("k")
+        assert path not in seen, f
+        seen.add(path)
+
+
+def test_library_path_covers_the_shared_search(tmp_path, monkeypatch):
+    """``segmin.cu`` and ``revsearch.cu`` include ``revsearch.cuh``: an
+    edit to it names new libraries for both, and not for
+    ``discharge.cu``."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    for f in build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {name: build.library_path(name) for name in build.SIGNATURES}
+    with open(tmp_path / "revsearch.cuh", "a") as f:
+        f.write("// edit\n")
+    changed = {name for name in build.SIGNATURES
+               if build.library_path(name) != before[name]}
+    assert changed == {"segmin", "revsearch"}
 
 
 def test_build_dir_is_the_checkout_else_a_user_cache(tmp_path, monkeypatch):

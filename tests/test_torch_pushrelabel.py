@@ -119,11 +119,65 @@ def test_missing_reverse_arc_is_dropped(seed):
     tm = tpr._flat_frontier_minh(gt, mt, tstate, avq, avq < mt.n)
     want = jpr._decide_apply(gj, mj, jstate, avq_j, avq_j < mj.n, *jm,
                              rev_fn=j_rev)
-    got = tpr._decide_apply(gt, mt, tstate, avq, avq < mt.n, *tm,
-                            rev_fn=t_rev)
+    # the port's _decide_apply takes the pushes' reverse arcs as the min
+    # search's rev entry gives them: A where an entry does not push
+    _, push = tpr._push_decision(tstate.h, torch.clamp(avq, max=mt.n - 1),
+                                 avq < mt.n, tm[0])
+    got = tpr._decide_apply(
+        gt, mt, tstate, avq, avq < mt.n, *tm,
+        rev=t_rev(gt, mt, torch.where(push, torch.clamp(tm[1], 0, a - 1),
+                                      a)))
     _same_state(want, got)
     full = tpr._decide_apply(gt, mt, tstate, avq, avq < mt.n, *tm)
     assert not torch.equal(full.res, got.res)  # a reverse scatter dropped
+
+
+@pytest.mark.parametrize("seed", [1, 4])  # seeds with flow
+def test_bsearch_solve_matches_jax_vc_solve(seed):
+    """A whole ``vc_kernel_bsearch`` solve, each cycle's search through
+    the min search's rev entry, == the JAX plain ``vc`` solve with the
+    ``rev`` table (which the reference proves equal to its
+    ``vc_kernel_bsearch`` on a well-formed BCSR): value, cycles, rounds,
+    global relabels, sweeps and the final state."""
+    (rj, *_), (rt, *_) = _pair(seed)
+    s, t = 0, rj.n - 1
+    want = jpr.solve_impl(rj, s, t, mode="vc", cycle_chunk=16)
+    got = tpr.solve_impl(rt, s, t, mode="vc_kernel_bsearch", cycle_chunk=16,
+                         device="cpu")
+    assert got.cycles > 0 and got.maxflow > 0
+    for f in ("maxflow", "cycles", "rounds", "global_relabels", "gr_sweeps"):
+        assert getattr(got, f) == getattr(want, f), f
+    _same_state(want.state, got.state)
+
+
+def test_bsearch_step_is_one_fused_search(monkeypatch):
+    """A ``vc_kernel_bsearch`` cycle makes one call of the min search's
+    rev entry and none of the two-output min search or of the standalone
+    ``bcsr_rev_search``; ``vc_kernel`` makes one of the two-output entry
+    only."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import revsearch
+
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return wrapped
+
+    for mod, name in ((kops, "tile_min_neighbor_gather"),
+                      (kops, "tile_min_neighbor_gather_rev"),
+                      (revsearch, "bcsr_rev_search")):
+        monkeypatch.setattr(mod, name, spy(name, getattr(mod, name)))
+    _, (rt, gt, mt, _) = _pair(1)
+    state = tpr.state_from_numpy(*(np.asarray(x) for x in
+                                   _jax_trajectory(1)[0]), device="cpu")
+    for mode, want in (("vc_kernel_bsearch", ["tile_min_neighbor_gather_rev"]),
+                       ("vc_kernel", ["tile_min_neighbor_gather"])):
+        calls.clear()
+        tpr._make_step(mode)(gt, mt, state, 0, mt.n - 1)
+        assert calls == want, mode
 
 
 def test_modes_not_ported_raise():
