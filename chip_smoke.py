@@ -7,7 +7,7 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc``, holds each kernel bit for bit against its plain PyTorch version
 on the card (sentinel edge cases, batched rows, and the main path's own
-shapes), and drives three paths, each with the launch counts set to 0
+shapes), and drives these paths, each with the launch counts set to 0
 just before it and read just after:
 
 * the main path — ``Solver(mode="vc_kernel_bsearch",
@@ -20,16 +20,37 @@ just before it and read just after:
 * the batched path — ``Solver(backend="batched", mode=m).solve_many(...)``
   on 8 instances of ``washington_rlg(256, 256)`` for ``m`` in
   ``vc_fused``, ``vc_kernel_bsearch`` and ``vc``, each value held against
-  scipy's Dinic, and a telemetry solve against its own counters.
+  scipy's Dinic, and a telemetry solve against its own counters;
+  ``solve_many`` corrects its batch to flows (phase 2), so the kernel
+  modes launch both forms of the min search's gather entry;
+* ``tc_path`` — ``Solver(mode="tc")`` on ``washington_rlg(256, 256)``
+  against plain ``vc`` bit for bit, and batched on the 8 instances
+  against batched ``vc`` and Dinic, launching no kernel (the
+  thread-centric scan is plain PyTorch; at 1024 x 1024 it would gather
+  about 1G lanes a cycle);
+* ``phase2_path`` — the main path's solution corrected by its handle
+  (phase 2 on the gather entry's dense and AVQ forms), bit-equal to the
+  plain phase 2 on the card, its flows conserved, its min cut of the max
+  flow's value (the source side by distance sweeps from ``s``);
+* ``batched_phase2`` — every batched handle corrected and valid, and
+  the ``vc_kernel_bsearch`` rows' flows equal to ``vc``'s;
+* ``matching_path`` — ``MatchingProblem(bipartite_random(131072,
+  131072, avg_deg=8.0))`` in ``vc_kernel_bsearch``, its matched pairs
+  against scipy's Hopcroft-Karp;
+* ``warm_path`` — on the small graph: 64 capacity increases of +50 (on
+  arcs of the min cut, chosen by a seeded generator) re-solved warm
+  against a cold solve and Dinic, a decrease within an arc's slack
+  answered with no solve, and a decrease below the routed flow refused.
 
 The fused discharge is also held against its plain version at the
 batched path's own shapes (after the first global relabel and mid-solve)
 and on more rows than the card holds resident blocks, through both its
 entries: the in-place one the drivers run, with its gate open and closed,
 and the out-of-place one.  It checks that one engine chunk of cycles
-(``vc_kernel_bsearch`` and ``vc_fused``, single and batched) and of
-global-relabel sweeps never synchronises with the host,
-and times every kernel beside its plain version, a PyTorch yardstick call
+(``vc_kernel_bsearch``, ``vc_fused`` and ``tc``, single and batched), of
+global-relabel sweeps and of phase 2's cancellations never synchronises
+with the host, and times every kernel beside its plain version, a
+PyTorch yardstick call
 where one exists and its memory bound, the min search's hook with its key
 built by eager ops against the entry that gathers the key itself, and the
 paper-faithful cycle's search as two launches against the one that folds
@@ -104,6 +125,12 @@ FUSED_KERNELS = ("fused_discharge_batched", "tile_min_neighbor_gather[dense]")
 #: reverse search (the bsearch cycle folds it into the min search)
 OFF_PATH = ("tile_min_neighbor[avq]", "tile_min_neighbor[dense]",
             "bcsr_rev_search")
+#: left and right vertices of the matching path's bipartite graph: the
+#: full run and ``--quick``
+MATCHING_SIDE = {False: 131072, True: 2048}
+#: the warm path's capacity increases: arcs raised, and by how much
+WARM_ARCS = 64
+WARM_DELTA = 50
 #: the path whose launches each kernel's row reports (the rest: "main")
 ROW_PATH = {"tile_min_neighbor_gather[avq]": "vc_kernel",
             "fused_discharge_batched": "fused"}
@@ -335,8 +362,11 @@ def main_path_and_modes(small, torch, problem, batch, oracles):
 
     # -- 5b. the batched path -----------------------------------------------
     sols = {}
-    expect = {"vc_fused": FUSED_KERNELS, "vc_kernel_bsearch": MAIN_KERNELS,
-              "vc": ()}
+    # solve_many corrects its batch: the kernel modes' phase 2 launches
+    # the AVQ gather entry (cancellation) besides the dense one (heights)
+    expect = {"vc_fused": FUSED_KERNELS + ("tile_min_neighbor_gather[avq]",),
+              "vc_kernel_bsearch": MAIN_KERNELS
+              + ("tile_min_neighbor_gather[avq]",), "vc": ()}
     for mode in BATCH_MODES:
         sols[mode], wall_b, paths[f"batched[{mode}]"] = driven(
             torch, lambda mode=mode: Solver(
@@ -376,17 +406,279 @@ def main_path_and_modes(small, torch, problem, batch, oracles):
           "active_sum": tel.active_sum.tolist(),
           "frontier_sum": tel.frontier_sum.tolist()})
 
-    want, t_scipy = oracles[0].get()
-    emit({"phase": "oracle", "scipy_dinic_s": t_scipy, "scipy_value": want})
-    require(main.value == want,
-            f"vc_kernel_bsearch value {main.value} != scipy Dinic {want}")
+    # the main graph's oracle is read last (main_oracle), once the later
+    # phases have run beside it
     got = [o.get() for o in oracles[1:]]
     emit({"phase": "batched_oracle", "scipy_values": [v for v, _ in got],
           "scipy_dinic_s": [x for _, x in got]})
     for mode in BATCH_MODES:
         require([x.value for x in sols[mode]] == [v for v, _ in got],
                 f"batched {mode} values != scipy Dinic")
-    return paths
+    return paths, {"main": main, "p_small": p_small, "v_small": v_small,
+                   "sols": sols, "batch_values": [v for v, _ in got]}
+
+
+def main_oracle(ctx, oracle):
+    """The main path's value, and so its min cut's, against scipy's Dinic
+    on the main graph."""
+    want, t_scipy = oracle.get()
+    emit({"phase": "oracle", "scipy_dinic_s": t_scipy, "scipy_value": want})
+    main = ctx["main"]
+    require(main.value == want,
+            f"vc_kernel_bsearch value {main.value} != scipy Dinic {want}")
+
+
+def flow_divergence(r, flows):
+    """Per-vertex net inflow of per-pair ``flows`` (int64): ``-value`` at
+    ``s``, ``value`` at ``t`` and 0 elsewhere for a conserved flow."""
+    import numpy as np
+
+    div = np.zeros(r.n, np.int64)
+    f = flows.astype(np.int64)
+    np.add.at(div, r.pair_u, -f)
+    np.add.at(div, r.heads[r.pair_arc], f)
+    return div
+
+
+def tc_path(torch, ctx, batch):
+    """Phase ``tc_path``: the thread-centric baseline on the small graph
+    and on the batched path's instances, no kernel, against plain ``vc``
+    and scipy's Dinic."""
+    from repro_torch.api import Solver
+
+    tc, wall, launches = driven(torch, lambda: Solver(mode="tc").solve(
+        ctx["p_small"]))
+    require(not any(launches.values()), "tc launched a kernel")
+    same_solution(torch, tc, ctx["v_small"], "tc vs vc")
+    tcb, wall_b, launches_b = driven(torch, lambda: Solver(
+        backend="batched", mode="tc").solve_many(batch))
+    require(not any(launches_b.values()), "batched tc launched a kernel")
+    for i, (a, b) in enumerate(zip(tcb, ctx["sols"]["vc"])):
+        same_solution(torch, a, b, f"batched tc vs vc [{i}]")
+    require([x.value for x in tcb] == ctx["batch_values"],
+            "batched tc values != scipy Dinic")
+    cyc_b = [x.stats.cycles for x in tcb]
+    emit({"phase": "tc_path", "value": tc.value, "cycles": tc.stats.cycles,
+          "wall_s": wall, "ms_per_cycle": 1e3 * wall / tc.stats.cycles,
+          "same_as_vc": True, "batched_wall_s": wall_b,
+          "batched_cycles": cyc_b,
+          "batched_ms_per_cycle": 1e3 * wall_b / max(cyc_b),
+          "batched_values": [x.value for x in tcb]})
+    return {"tc": launches, "batched[tc]": launches_b}
+
+
+def phase2_path(torch, problem, ctx):
+    """Phase ``phase2_path``: the main path's own solution corrected to a
+    flow by its handle (phase 2 on the min search's gather entry), held
+    against the plain phase 2 on the card, then its flows and min cut
+    (whose value equals the solve's, which ``main_oracle`` holds against
+    scipy's Dinic)."""
+    import numpy as np
+
+    from repro_torch.core import pushrelabel as pr
+
+    main = ctx["main"]
+    r, s, t = problem.residual("bcsr"), problem.s, problem.t
+    e0 = main.state.e.cpu().numpy().copy()
+    e0[[s, t]] = 0
+    handle = main.warm_start
+    require(not handle.corrected and handle.device == main.state.res.device,
+            "the main path's handle is not lazy on the solve's device")
+    (res, e), wall, launches = driven(torch, handle.arrays,
+                                      VC_KERNEL_KERNELS)
+    plain, wall_plain, launches_plain = driven(
+        torch, lambda: pr.convert_preflow_to_flow(r, main.state, s, t))
+    require(not any(launches_plain.values()),
+            "the plain phase 2 launched a kernel")
+    require(np.array_equal(res, plain),
+            "phase 2 on the kernel != the plain phase 2 on the card")
+    handle.validate()
+    e_t = e.copy()
+    e_t[t] = 0
+    require(int(e[t]) == main.value and not e_t.any(),
+            "the corrected excess is not 0 off the sink")
+    flows, wall_flows, _ = driven(torch, main.flows)
+    div = flow_divergence(r, flows)
+    inner = np.ones(r.n, bool)
+    inner[[s, t]] = False
+    require(div[s] == -main.value and div[t] == main.value
+            and not div[inner].any(), "main.flows() is not conserved")
+    cut, wall_cut, launches_cut = driven(
+        torch, main.min_cut, ("tile_min_neighbor_gather[dense]",))
+    require(cut.value == main.value, f"min cut {cut.value} != max flow "
+            f"{main.value}")
+    require(bool(cut.source_side[s]) and not cut.source_side[t],
+            "the cut does not separate s from t")
+    require(bool((res[cut.cut_arcs] == 0).all()), "a cut arc has residual")
+    emit({"phase": "phase2_path", "mode": main.stats.mode,
+          "stranded_units": int(e0.sum()),
+          "stranded_vertices": int((e0 > 0).sum()),
+          "arrays_wall_s": wall, "arrays_launches": launches,
+          "plain_wall_s": wall_plain, "same_as_plain": True,
+          "flows_wall_s": wall_flows, "min_cut_wall_s": wall_cut,
+          "min_cut_sweeps": launches_cut["tile_min_neighbor_gather[dense]"],
+          "min_cut_value": cut.value, "cut_arcs": int(cut.cut_arcs.size),
+          "source_side": int(cut.source_side.sum())})
+    return {"phase2": launches, "min_cut": launches_cut}
+
+
+def batched_phase2(torch, ctx):
+    """Phase ``batched_phase2``: ``solve_many`` handed back corrected,
+    valid handles, and the kernel-mode rows' flows equal plain ``vc``'s."""
+    import numpy as np
+
+    sols = ctx["sols"]
+
+    def check():
+        for mode in BATCH_MODES:
+            for sol in sols[mode]:
+                require(sol.warm_start.corrected, f"batched {mode} handle "
+                        "is not corrected")
+                sol.warm_start.validate()
+        for i, (a, b) in enumerate(zip(sols["vc_kernel_bsearch"],
+                                       sols["vc"])):
+            require(np.array_equal(a.flows(), b.flows()),
+                    f"batched vc_kernel_bsearch flows != vc [{i}]")
+
+    _, wall, launches = driven(torch, check)
+    emit({"phase": "batched_phase2", "ok": True, "rows": len(sols["vc"]),
+          "check_wall_s": wall, "launches": launches})
+
+
+def scipy_matching(bp):
+    """The size of a maximum matching of ``bp``'s left-right edges by
+    scipy's Hopcroft-Karp, and its seconds."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import maximum_bipartite_matching
+
+    t0 = time.perf_counter()
+    lr = bp.lr_edges
+    m = csr_matrix((np.ones(len(lr), np.int32),
+                    (lr[:, 0], lr[:, 1] - bp.n_left)),
+                   shape=(bp.n_left, bp.n_right))
+    size = int((maximum_bipartite_matching(m, perm_type="column") >= 0).sum())
+    return size, time.perf_counter() - t0
+
+
+def matching_path(torch, quick):
+    """Phase ``matching_path``: a bipartite matching through the
+    paper-faithful mode, against scipy's Hopcroft-Karp."""
+    import numpy as np
+
+    from repro_torch.api import MatchingProblem, Solver
+    from repro_torch.graphs.generators import bipartite_random
+
+    side = MATCHING_SIDE[quick]
+    t0 = time.perf_counter()
+    bp = bipartite_random(side, side, avg_deg=8.0, seed=SEED)
+    gen_s = time.perf_counter() - t0
+    mp = MatchingProblem(bp)
+    r = mp.residual("bcsr")
+    sol, wall, launches = driven(torch, lambda: Solver(
+        mode="vc_kernel_bsearch").solve(mp), MAIN_KERNELS)
+    pairs, wall_pairs, launches_pairs = driven(torch, sol.matching)
+    want, t_scipy = scipy_matching(bp)
+    require(len(pairs) == sol.value == want, f"matching of {len(pairs)} "
+            f"pairs, value {sol.value}, scipy {want}")
+    require(np.unique(pairs[:, 0]).size == len(pairs)
+            and np.unique(pairs[:, 1]).size == len(pairs),
+            "a vertex is matched twice")
+    code = bp.n_left + bp.n_right
+    p64 = pairs.astype(np.int64)  # the codes overflow int32
+    require(bool(np.isin(p64[:, 0] * code + p64[:, 1],
+                         bp.lr_edges[:, 0] * code + bp.lr_edges[:, 1]).all()),
+            "a matched pair is no edge")
+    emit({"phase": "matching_path", "mode": "vc_kernel_bsearch",
+          "graph": f"bipartite_random({side}, {side}, avg_deg=8.0, "
+          f"seed={SEED})", "n": r.n, "arcs": r.num_arcs,
+          "deg_max": r.deg_max, "lr_edges": len(bp.lr_edges),
+          "gen_s": gen_s, "wall_s": wall, "cycles": sol.stats.cycles,
+          "value": sol.value, "launches": launches,
+          "matching_wall_s": wall_pairs, "matching_launches": launches_pairs,
+          "scipy_value": want, "scipy_s": t_scipy,
+          "over_60_s": wall > 60})
+    return {"matching": launches}
+
+
+def warm_path(torch, ctx):
+    """Phase ``warm_path``: warm re-solves of the small graph's
+    paper-faithful solution: capacity increases against a cold solve and
+    scipy's Dinic, a slack-only decrease answered with no solve, and an
+    overflowing decrease refused."""
+    import numpy as np
+
+    from repro_torch.api import CapacityUpdate, MaxflowProblem, Solver
+    from repro_torch.obs import REGISTRY
+
+    solver = Solver(mode="vc_kernel_bsearch")
+    p = ctx["p_small"]
+    cold, wall_cold, _ = driven(torch, lambda: solver.solve(p), MAIN_KERNELS)
+    require(cold.value == ctx["v_small"].value, "cold value != vc")
+    handle = cold.warm_start
+    r = handle.residual
+    # arcs of the min cut first, so that the increases can route more
+    cut = cold.min_cut().cut_arcs
+    rng = np.random.default_rng(SEED)
+    picks = rng.choice(cut, size=min(WARM_ARCS, cut.size), replace=False)
+    if picks.size < WARM_ARCS:
+        rest = np.setdiff1d(np.nonzero(r.res0 > 0)[0], picks)
+        picks = np.concatenate([picks, rng.choice(
+            rest, size=WARM_ARCS - picks.size, replace=False)])
+    ups = [CapacityUpdate(int(r.tails[a]), int(r.heads[a]), WARM_DELTA)
+           for a in picks]
+    warm, wall_warm, launches_warm = driven(
+        torch, lambda: solver.resolve(handle, ups))
+    r2 = warm.warm_start.residual
+    again, wall_again, _ = driven(torch, lambda: solver.solve(
+        MaxflowProblem.from_residual(r2, p.s, p.t)), MAIN_KERNELS)
+    want, _ = scipy_maxflow(r2.n, np.stack([r2.tails, r2.heads], 1),
+                            r2.res0, p.s, p.t)
+    require(warm.value == again.value == want, f"warm {warm.value} != cold "
+            f"{again.value} / scipy Dinic {want}")
+    # a decrease within an arc's slack: the flow stays maximal, no solve
+    res, _ = handle.arrays()
+    slack = np.nonzero((r.res0 > 0) & (res > 0))[0]
+    a = int(rng.choice(slack))
+    d = int(min(res[a], r.res0[a]))
+    noop = REGISTRY.counter("stream.noop_resolves")
+    before = noop.value
+    dec, wall_dec, launches_dec = driven(torch, lambda: solver.resolve(
+        handle, [CapacityUpdate(int(r.tails[a]), int(r.heads[a]), -d)]))
+    require(dec.value == cold.value and dec.stats.cycles == 0
+            and noop.value == before + 1 and not any(launches_dec.values()),
+            "the slack-only decrease was not answered without a solve")
+    # a decrease below the routed flow needs the streaming tier's drain
+    carrying = np.nonzero((r.res0 > 0) & (r.res0 - res > 0))[0]
+    b = int(carrying[0])
+    try:
+        solver.resolve(handle, [CapacityUpdate(
+            int(r.tails[b]), int(r.heads[b]), -int(r.res0[b]))])
+        refused = False
+    except NotImplementedError as exc:
+        refused = "Streaming" in str(exc)
+    require(refused, "an overflowing decrease was not refused naming the "
+            "streaming item")
+    emit({"phase": "warm_path", "mode": "vc_kernel_bsearch",
+          "increases": len(ups), "delta": WARM_DELTA,
+          "cut_arcs": int(cut.size), "cold_value": cold.value,
+          "cold_cycles": cold.stats.cycles, "cold_wall_s": wall_cold,
+          "warm_value": warm.value, "warm_cycles": warm.stats.cycles,
+          "warm_wall_s": wall_warm, "warm_launches": launches_warm,
+          "cold_updated_cycles": again.stats.cycles,
+          "cold_updated_wall_s": wall_again, "scipy_value": want,
+          "noop_decrease_wall_s": wall_dec, "overflow_refused": True})
+    return {"warm": launches_warm}
+
+
+def views_and_modes(quick, small, torch, problem, batch, ctx, paths):
+    """The phases of phase 2, the views and ``tc``, each driven with the
+    launch counts set to 0 just before it and read just after."""
+    paths.update(tc_path(torch, ctx, batch))
+    paths.update(phase2_path(torch, problem, ctx))
+    batched_phase2(torch, ctx)
+    paths.update(matching_path(torch, quick))
+    paths.update(warm_path(torch, ctx))
 
 
 def main(argv=None) -> int:
@@ -437,7 +729,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from repro_torch.api import MaxflowProblem
-    from repro_torch.core import batched, engine, globalrelabel
+    from repro_torch.core import batched, engine, globalrelabel, phase2
     from repro_torch.core import pushrelabel as pr
     from repro_torch.core.csr import Graph, build_residual
     from repro_torch.graphs.generators import random_sparse, washington_rlg
@@ -801,7 +1093,10 @@ def main(argv=None) -> int:
         oracles += [pool.apply_async(scipy_maxflow, (g_.n, g_.edges, g_.cap,
                                                      s_, t_))
                     for g_, s_, t_ in bgraphs]
-        paths = main_path_and_modes(small, torch, problem, batch, oracles)
+        paths, ctx = main_path_and_modes(small, torch, problem, batch,
+                                         oracles)
+        views_and_modes(args.quick, small, torch, problem, batch, ctx, paths)
+        main_oracle(ctx, oracles[0])
     emit({"phase": "launches_by_path", **paths})
 
     # -- 6. no host sync inside an engine chunk -----------------------------
@@ -867,11 +1162,33 @@ def main(argv=None) -> int:
     b_bs = batched.batched_cycle_loop(bbg, bmeta, bstate,
                                       "vc_kernel_bsearch", 1024)
     chunk = engine.DEFAULT_CHUNK
+    # phase 2's cancellation steps on the kernel, from the preflow (its
+    # excess sits on the source's neighbours), under fixed flow heights;
+    # and the tc cycle, single and batched
+    height = phase2.flow_heights_impl(g, meta, res0, state.res, s,
+                                      minh_fn)[0]
+
+    def cancel(c):
+        st = phase2._cancel_step(g, meta, res0, pr.PRState(c[0], height,
+                                                           c[1]), s, t,
+                                 minh_fn)
+        return st.res, st.e, torch.any(st.e != c[1])
+
+    c_carry = (state.res, state.e, torch.ones((), dtype=torch.bool,
+                                              device=dev))
+    tc_body, tc_cond = pr.cycle_loop(g, meta, s, t, "tc", cap=1024)
+    b_tc = batched.batched_cycle_loop(bbg, bmeta, bstate, "tc", 1024)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         fp_carry = engine.run_chunk(fp_step, fp_carry, cond_fn=fp_cond,
                                     chunk=chunk)
+        c_carry = engine.run_chunk(cancel, c_carry, cond_fn=lambda c: c[2],
+                                   chunk=chunk)
+        tc_carry = engine.run_chunk(tc_body, (state, zero), cond_fn=tc_cond,
+                                    chunk=chunk)
+        btc_carry = engine.run_chunk(b_tc[0], b_tc[2], cond_fn=b_tc[1],
+                                     chunk=chunk)
         for mode, (body, cond) in loops.items():
             carries[mode] = engine.run_chunk(body, carries[mode],
                                              cond_fn=cond, chunk=chunk,
@@ -886,12 +1203,17 @@ def main(argv=None) -> int:
             and int(carries["vc_kernel_bsearch"][1]) == chunk
             and int(carries["vc_fused"][1]) == chunk * K_DEFAULT
             and int(b_carry[2]) == chunk * K_DEFAULT
-            and int(bs_carry[2]) == chunk,
+            and int(bs_carry[2]) == chunk and int(tc_carry[1]) == chunk
+            and int(btc_carry[2]) == chunk,
             "the sync-free chunks did not run their steps")
+    require(not torch.equal(c_carry[1], state.e),
+            "the sync-free cancellation chunk moved no excess")
     emit({"phase": "no_host_sync", "ok": True, "chunk": chunk,
           "loops": ["sweep[kernel]", "cycle[vc_kernel_bsearch]",
                     "cycle[vc_fused]", "batched cycle[vc_fused]",
-                    "batched cycle[vc_kernel_bsearch]"]})
+                    "batched cycle[vc_kernel_bsearch]",
+                    "phase-2 cancel[kernel]", "cycle[tc]",
+                    "batched cycle[tc]"]})
     # and mid-solve, at the state the batched chunk left
     got = fused_discharge_batched(*bargs, *b_carry[0], n=bmeta.n,
                                   k=K_DEFAULT, counters=True)

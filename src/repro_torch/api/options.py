@@ -23,10 +23,10 @@ class SolverOptions:
         (the paper's workload-balanced vertex-centric, on plain PyTorch
         ops), the faithful CUDA variants ``vc_kernel`` (warp-per-vertex
         min search) and ``vc_kernel_bsearch`` (plus the BCSR
-        binary-search reverse lookup), and ``vc_fused`` (K whole cycles
-        per launch of the fused discharge kernel).  ``tc`` is an
-        accepted name whose solve raises ``NotImplementedError`` until it
-        is ported.
+        binary-search reverse lookup), ``vc_fused`` (K whole cycles per
+        launch of the fused discharge kernel), and ``tc`` (the paper's
+        thread-centric baseline: every vertex scans its whole segment
+        each cycle, on plain PyTorch ops).
     ``layout``
         Residual-graph layout, ``bcsr`` or ``rcsr`` (paper §3.2).
     ``backend``

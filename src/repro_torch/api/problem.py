@@ -1,6 +1,5 @@
 """Typed problem specifications: what to solve, decoupled from how (port
-of the JAX package's ``repro.api.problem``; ``MatchingProblem`` comes
-with phase 2).
+of the JAX package's ``repro.api.problem``).
 
 A problem owns its graph construction — it wraps ``csr.build_residual``
 and caches one ``ResidualCSR`` per layout, so callers never juggle raw
@@ -14,6 +13,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.csr import Graph, ResidualCSR, build_residual
+from repro_torch.graphs.generators import BipartiteProblem
 
 
 @dataclasses.dataclass(eq=False)
@@ -74,7 +74,43 @@ class MaxflowProblem(_ResidualOwner):
 class MinCutProblem(MaxflowProblem):
     """Same spec as max-flow; asks for the dual certificate.
 
-    ``Solution.value`` is the cut capacity (equal to the max flow by LP
-    duality); the cut itself, ``Solution.min_cut()``, needs phase 2, which
-    is not ported yet.
+    ``Solution.min_cut()`` is available on any max-flow solution — this
+    subclass exists so intent is typed and ``Solution.value`` documents
+    itself as the cut capacity (equal to the max flow by LP duality).
     """
+
+
+@dataclasses.dataclass(eq=False)
+class MatchingProblem(_ResidualOwner):
+    """Maximum bipartite matching via unit-capacity max-flow.
+
+    Wraps the generator's ``BipartiteProblem`` (super-source/super-sink
+    construction already attached); matching size == max-flow value and
+    the matched pairs come from ``Solution.matching()``.
+    """
+
+    bipartite: BipartiteProblem
+
+    @property
+    def graph(self) -> Graph:
+        return self.bipartite.graph
+
+    @property
+    def s(self) -> int:
+        return self.bipartite.s
+
+    @property
+    def t(self) -> int:
+        return self.bipartite.t
+
+    @property
+    def n_left(self) -> int:
+        return self.bipartite.n_left
+
+    @property
+    def n_right(self) -> int:
+        return self.bipartite.n_right
+
+    @property
+    def n(self) -> int:
+        return self.graph.n

@@ -22,7 +22,10 @@ discharge) is ONE launch spanning the whole batch:
   of the step, so the loop exits when every instance's AVQ is empty and
   each instance's cycle counter stops advancing the moment it converges.
 * ``batched_resolve`` accepts an arbitrary valid starting state: the
-  shared tail of cold solves and, once phase 2 is ported, warm re-solves.
+  shared tail of cold solves and of warm re-solves
+  (``warm_start_arrays``/``pack_states``).
+* ``batched_phase2`` converts every final preflow to a genuine flow in one
+  pass over the whole batch (``phase2.batched_phase2_impl``).
 
 Correctness note on padding: every height threshold in the per-instance
 code is ``meta.n``, which here is ``n_pad``.  Push-relabel is indifferent
@@ -56,12 +59,6 @@ from repro_torch.obs import solvercounters as sc
 STATE_DTYPE = np.int32
 
 _I32 = torch.int32
-
-#: where phase 2 of the batched core waits
-_PHASE2 = ("phase2=True needs phase 2 (preflow -> flow), which is not "
-           "ported yet (see ROADMAP.md Queue 1 item 4, 'Phase 2, result "
-           "views and the facade')")
-
 
 def as_state_dtype(arr, what: str = "array") -> np.ndarray:
     """``np.asarray(arr, STATE_DTYPE)`` that refuses lossy casts: raises
@@ -260,8 +257,10 @@ class _Flat(NamedTuple):
     aoff: torch.Tensor  # (B, 1) int32 row offsets of arcs
 
 
-def _flat(bg: BatchedDeviceGraph, meta) -> _Flat:
-    bsz, n, A = bg.batch, meta.n, meta.num_arcs
+def _flat(bg: BatchedDeviceGraph | pr.DeviceGraph, meta) -> _Flat:
+    """The flat view of stacked rows (a ``BatchedDeviceGraph`` or a
+    ``DeviceGraph`` of ``(B, ·)`` rows)."""
+    bsz, n, A = bg.heads.shape[0], meta.n, meta.num_arcs
     b = torch.arange(bsz, dtype=_I32, device=bg.indptr.device)[:, None]
     voff, aoff = b * n, b * A
     g = pr.DeviceGraph(indptr=None, heads=(bg.heads + voff).view(-1),
@@ -308,13 +307,10 @@ def batched_global_relabel(bg: BatchedDeviceGraph, meta,
 
 
 def _check_mode(mode: str) -> None:
-    """Raise ``ValueError`` on an unknown mode and ``NotImplementedError``
-    on one that is not ported yet."""
+    """Raise ``ValueError`` on an unknown mode."""
     if mode not in pr.ALL_MODES:
         raise ValueError(
             f"batched mode must be one of {pr.ALL_MODES}, got {mode!r}")
-    if mode not in pr.PORTED_MODES:
-        pr._make_step(mode)  # raises: not ported
 
 
 def _kernel_batch_step(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
@@ -326,16 +322,29 @@ def _kernel_batch_step(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
     flat-frontier search over the batch as one graph (``vc``); in
     ``vc_kernel_bsearch`` that launch also finds every push's reverse arc
     (the min search's rev entry); the decide/apply runs on the flat graph.
-    Results are bit for bit ``vc``'s on each row."""
+    ``tc`` scans every vertex of the flat graph instead of the AVQ (its
+    dead end stays ``n``).  Results are bit for bit ``vc``'s on each
+    row."""
     from repro_torch.kernels import ops as kops
 
     n, A = meta.n, meta.num_arcs
     flat = flat or _flat(bg, meta)
     N, AF = bg.batch * n, bg.batch * A
-    avq = row_avq(active_rows(state.h, state.e, n, bg.s, bg.t))
+    act = active_rows(state.h, state.e, n, bg.s, bg.t)
+    fstate = pr.PRState(*(x.view(-1) for x in state))
+    if mode == "tc":
+        q_valid = act.view(-1)
+        minh, argarc = pr.tc_scan(flat.starts, flat.ends - flat.starts,
+                                  flat.g.heads, fstate.res, fstate.h,
+                                  q_valid, meta.deg_max)
+        new = pr._decide_apply(
+            flat.g, flat.meta, fstate,
+            torch.arange(N, dtype=_I32, device=act.device), q_valid,
+            minh, argarc, dead_end=n)
+        return BatchedPRState(*(x.view(y.shape) for x, y in zip(new, state)))
+    avq = row_avq(act)
     q_valid = avq < n
     u = torch.where(q_valid, avq + flat.voff, N).view(-1)
-    fstate = pr.PRState(*(x.view(-1) for x in state))
     rev = None
     if mode == "vc":
         key = torch.where(fstate.res > 0, fstate.h[flat.g.heads], kref.INF)
@@ -380,7 +389,8 @@ def batched_run_cycles(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
     min-search launch per cycle spanning the batch, which in bsearch also
     finds the reverse arcs), and 'vc_fused' — one fused
     discharge launch per K cycles, its per-instance live-cycle counts
-    keeping ``cycles[b]`` exact.  'tc' is not ported yet.
+    keeping ``cycles[b]`` exact; 'tc' scans every vertex of the batch
+    (the paper's thread-centric baseline).
 
     ``telemetry=True`` folds per-instance ``(B,)`` int32
     push/relabel/active/frontier totals into the carry (the fused mode
@@ -600,11 +610,13 @@ def batched_solve_impl(instances: list[tuple[ResidualCSR, int, int]],
 
     The kernel modes launch each kernel once per cycle (once per K
     cycles for 'vc_fused') for the whole batch.  ``vc_kernel_bsearch``
-    requires head-sorted (bcsr) instances.  ``phase2=True`` raises
-    ``NotImplementedError`` until phase 2 is ported.
+    requires head-sorted (bcsr) instances.
+
+    ``phase2=True`` additionally converts every final preflow to a
+    genuine flow in one ``batched_phase2`` pass over the whole batch
+    (kernel modes on the min search's batch-wide launches), and sets
+    ``corrected``.
     """
-    if phase2:
-        raise NotImplementedError(_PHASE2)
     if mode == "vc_kernel_bsearch":
         bad = [i for i, (r, _, _) in enumerate(instances)
                if not r.binary_search_ready()]
@@ -616,7 +628,128 @@ def batched_solve_impl(instances: list[tuple[ResidualCSR, int, int]],
                                              A_pad=A_pad, deg_max=deg_max,
                                              device=device)
     state = batched_preflow(bg, meta, res0)
-    return batched_resolve(bg, meta, state, trivial=trivial, mode=mode,
-                           cycle_chunk=cycle_chunk, max_rounds=max_rounds,
-                           telemetry=telemetry, max_cycles=max_cycles,
-                           scan_chunk=scan_chunk)
+    out = batched_resolve(bg, meta, state, trivial=trivial, mode=mode,
+                          cycle_chunk=cycle_chunk, max_rounds=max_rounds,
+                          telemetry=telemetry, max_cycles=max_cycles,
+                          scan_chunk=scan_chunk)
+    if phase2:
+        out.state, leftover = batched_phase2(
+            bg, meta, res0, out.state, minh_fn=engine.resolve_minh_fn(mode))
+        check_phase2_leftover(leftover)
+        out.corrected = True
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2 and warm starts
+# ---------------------------------------------------------------------------
+
+def batched_phase2(bg: BatchedDeviceGraph, meta, res0,
+                   state: BatchedPRState, scan: bool = False,
+                   minh_fn=None):
+    """Device phase 2 (preflow -> flow) over the whole batch: one pass
+    cancels every instance's stranded excess back to its source.
+
+    ``res0`` is the packed ``(B, A_pad)`` initial-capacity array from
+    ``pack_instances``.  Returns ``(corrected state, leftover)`` where
+    ``leftover[b]`` (a ``(B,)`` tensor) is instance b's undrainable
+    excess — zero for every valid preflow (``check_phase2_leftover``
+    raises otherwise).  Padded and trivial lanes carry no excess and are
+    no-ops.  ``scan=True`` selects with the thread-centric scan (bit for
+    bit the same).  Under a kernel ``minh_fn`` each height sweep and each
+    cancellation selection is ONE launch spanning the batch
+    (``phase2.batched_phase2_impl``)."""
+    from repro_torch.core import phase2 as p2
+
+    res, e, leftover = p2.batched_phase2_impl(
+        _rows(bg), meta, res0, state.res, state.e, bg.s, bg.t,
+        minh_fn=minh_fn, scan=scan)
+    return BatchedPRState(res=res, h=state.h, e=e), leftover
+
+
+def check_phase2_leftover(leftover) -> None:
+    """Raise if any batch lane could not drain its excess (invalid preflow)."""
+    left = pr.host_array(leftover)
+    if left.any():
+        bad = np.nonzero(left)[0].tolist()
+        raise RuntimeError(
+            f"phase 2 could not drain excess on batch lanes {bad} — the "
+            "states are not valid preflows (excess must be flow-connected "
+            "to the source)")
+
+
+def warm_start_arrays(r: ResidualCSR, prev_res: np.ndarray,
+                      prev_e: np.ndarray, s: int,
+                      budget: int | None = None):
+    """Turn a cached final residual (possibly after capacity increases have
+    been added to ``prev_res``) into a valid warm preflow.
+
+    Saturates residual arcs out of the source, each by at most ``budget``
+    units.  For a re-solve after capacity increases totalling ``D``, the
+    max-flow gain is at most ``D`` and the optimum routes at most ``D``
+    additional units through any single source arc, so ``budget = D``
+    preserves optimality while bounding the injected excess to
+    ``deg(s) * D`` instead of the full unsent source capacity.
+    ``budget=None`` saturates fully, which on a fresh residual is exactly
+    the preflow initialisation.
+
+    Returns host ``(res, h, e)`` ready for ``pack_states`` (heights are
+    recomputed by the global relabel inside ``batched_resolve``).  The
+    arithmetic stages in int64 and narrows through ``as_state_dtype`` —
+    values that left the int32 state dtype raise instead of wrapping.
+    """
+    res = np.asarray(prev_res, np.int64).copy()
+    e = np.asarray(prev_e, np.int64).copy()
+    lo, hi = int(r.indptr[s]), int(r.indptr[s + 1])
+    out = np.arange(lo, hi)
+    d = res[out] if budget is None else np.minimum(res[out], budget)
+    res[r.rev[out]] += d
+    np.add.at(e, r.heads[out], d)
+    res[out] -= d
+    e[s] = 0
+    h = np.zeros(r.n, STATE_DTYPE)
+    return (as_state_dtype(res, "warm-start res"), h,
+            as_state_dtype(e, "warm-start excess"))
+
+
+def find_arc(r: ResidualCSR, u: int, v: int) -> int:
+    """Index of the directed arc u->v; raises KeyError when the pair does
+    not exist (a structural change — callers must rebuild the CSR).
+
+    Scans only u's arc segment (O(log deg) on bcsr, whose segments are
+    head-sorted; O(deg) on rcsr) — this sits on the capacity-update path
+    of every warm re-solve."""
+    if not 0 <= u < r.n:
+        raise KeyError(f"no arc {u}->{v} in graph")
+    lo, hi = int(r.indptr[u]), int(r.indptr[u + 1])
+    seg = r.heads[lo:hi]
+    if r.binary_search_ready():
+        i = int(np.searchsorted(seg, v))
+        if i < seg.size and seg[i] == v:
+            return lo + i
+    else:
+        hit = np.nonzero(seg == v)[0]
+        if hit.size:
+            return lo + int(hit[0])
+    raise KeyError(f"no arc {u}->{v} in graph")
+
+
+def apply_capacity_increases(r: ResidualCSR, res: np.ndarray,
+                             updates) -> tuple[ResidualCSR, np.ndarray]:
+    """Apply ``(u, v, delta>=0)`` capacity increases to a solved residual.
+
+    Returns ``(updated ResidualCSR, updated res)``; raises ``KeyError`` if
+    ``(u, v)`` is not an existing directed pair (a structural change — the
+    caller must fall back to a cold solve on a rebuilt CSR) and
+    ``ValueError`` for negative deltas (not warm-startable: reducing
+    capacity below routed flow creates deficits push-relabel cannot drain).
+    """
+    res = np.asarray(res, np.int64).copy()
+    res0 = r.res0.copy()
+    for u, v, delta in updates:
+        if delta < 0:
+            raise ValueError("capacity decreases are not warm-startable")
+        a = find_arc(r, u, v)
+        res[a] += delta
+        res0[a] += delta
+    return dataclasses.replace(r, res0=res0), res

@@ -16,6 +16,12 @@ on ``res``), excess updates are scatter-adds (the commutative analogue of
 inherits its correctness proof [Hong 2008].  Integer adds commute, so the
 result is bit-for-bit the JAX package's.
 
+``tc_step`` is the paper's **thread-centric** baseline: every vertex
+walks its own segment to ``deg_max`` (O(V * deg_max) per cycle, the
+imbalance the paper's cost model identifies); its scan runs as chunks of
+columns, which gives the reference's one-column-at-a-time loop bit for
+bit.
+
 The kernel modes run the min search on the CUDA min-search kernel
 (``repro_torch.kernels.segmin``); in ``vc_kernel_bsearch`` the same launch
 also finds each push's reverse arc by the BCSR binary search
@@ -46,8 +52,10 @@ from repro_torch.obs import solvercounters as sc
 
 _I32 = torch.int32
 
-#: where each part of the JAX package that this slice leaves out is queued
-_QUEUE = "see ROADMAP.md Queue 1"
+#: the most (vertex, column) lanes one chunk of the thread-centric scan
+#: gathers at once; it bounds the scan's temporaries (a few int32/int64
+#: tensors of this many elements) and fixes its chunk width per graph
+TC_LANES = 1 << 24
 
 
 class DeviceGraph(NamedTuple):
@@ -138,6 +146,53 @@ def _flat_frontier_minh(g: DeviceGraph, meta: GraphMeta, state: PRState,
     return kref.min_neighbor_ref(avq, g.indptr, key, n=meta.n)
 
 
+def tc_scan(starts: torch.Tensor, deg: torch.Tensor, heads: torch.Tensor,
+            res: torch.Tensor, h: torch.Tensor, act: torch.Tensor,
+            deg_max: int):
+    """Thread-centric scan over segments ``starts[v]:starts[v] + deg[v]``
+    (``deg[v] <= deg_max``): for every vertex the min of ``h[heads[a]]``
+    over its arcs with ``res > 0`` (only where ``act``) and the first arc
+    attaining it, ``(INF, A)`` where none exists.
+
+    The reference walks the columns ``j < deg_max`` one at a time with a
+    strict ``<``, so the earliest column attaining the min wins.  Here a
+    chunk of ``C`` columns is one ``(V, C)`` gather, reduced to its min
+    and its first column attaining it; chunks combine with the same
+    strict ``<``, so an earlier chunk wins a tie: bit for bit the
+    reference's loop.  ``C`` keeps ``V * C`` within ``TC_LANES``, and
+    every chunk has the same static shape (columns past ``deg`` are
+    masked like the reference's)."""
+    nv, a = starts.shape[0], heads.shape[0]
+    dev = starts.device
+    minh = torch.full((nv,), INF, dtype=_I32, device=dev)
+    argarc = torch.full((nv,), a, dtype=_I32, device=dev)
+    if deg_max <= 0 or nv == 0:
+        return minh, argarc
+    width = max(1, min(deg_max, TC_LANES // nv))
+    cols = torch.arange(width, dtype=_I32, device=dev)
+    for j0 in range(0, deg_max, width):
+        j = cols + j0
+        arc = torch.clamp(starts[:, None] + j, 0, a - 1)
+        ok = (j < deg[:, None]) & act[:, None] & (res[arc] > 0)
+        key = torch.where(ok, h[heads[arc]], INF)
+        cmin = key.amin(dim=1)
+        # the first column attaining the chunk's min (some column does)
+        first = torch.where(key == cmin[:, None], cols, width).amin(dim=1)
+        carc = torch.gather(arc, 1, first.long()[:, None]).view(-1)
+        better = cmin < minh
+        minh = torch.where(better, cmin, minh)
+        argarc = torch.where(better, carc, argarc)
+    return minh, argarc
+
+
+def _tc_scan_minh(g: DeviceGraph, meta: GraphMeta, state: PRState,
+                  act: torch.Tensor):
+    """Thread-centric scan: every vertex-lane walks its own segment to
+    ``deg_max`` (masked) — the paper's imbalanced baseline."""
+    return tc_scan(g.indptr[:-1], g.indptr[1:] - g.indptr[:-1], g.heads,
+                   state.res, state.h, act, meta.deg_max)
+
+
 # ---------------------------------------------------------------------------
 # push / relabel decision + bulk-synchronous apply
 # ---------------------------------------------------------------------------
@@ -212,6 +267,17 @@ def vc_step(g: DeviceGraph, meta: GraphMeta, state: PRState, s: int, t: int,
                          *fn(g, meta, state, avq, q_valid))
 
 
+def tc_step(g: DeviceGraph, meta: GraphMeta, state: PRState, s: int,
+            t: int) -> PRState:
+    """One thread-centric iteration (paper Alg. 1 inner loop): every
+    vertex is its own lane, the inactive ones masked (the scan gives
+    them ``(INF, A)``)."""
+    act = active_mask(state, meta.n, s, t)
+    minh, argarc = _tc_scan_minh(g, meta, state, act)
+    u = torch.arange(meta.n, dtype=_I32, device=act.device)
+    return _decide_apply(g, meta, state, u, act, minh, argarc)
+
+
 #: modes whose hot loops run the CUDA kernels ('vc_fused' runs the whole
 #: discharge in one kernel; the others route the min search, and in
 #: 'vc_kernel_bsearch' the reverse lookup with it, through the min-search
@@ -221,24 +287,18 @@ KERNEL_MODES = ("vc_kernel", "vc_kernel_bsearch", "vc_fused")
 #: every step strategy of the JAX package, under the same names
 ALL_MODES = ("vc", "tc") + KERNEL_MODES
 
-#: the modes this package runs
-PORTED_MODES = ("vc", "vc_kernel", "vc_kernel_bsearch", "vc_fused")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({_QUEUE})")
-
 
 def _make_step(mode: str) -> Callable:
-    """Step factory: 'vc' (flat frontier, beyond-paper), 'vc_kernel'
-    (faithful min-search kernel), 'vc_kernel_bsearch' (faithful BCSR: the
-    min search and the binary-search reverse lookup in one launch).
-    'vc_fused' is not a per-cycle step: ``run_cycles`` drives it as K
-    cycles per launch (``repro_torch.kernels.discharge``)."""
+    """Step factory: 'vc' (flat frontier, beyond-paper), 'tc' (the
+    thread-centric baseline), 'vc_kernel' (faithful min-search kernel),
+    'vc_kernel_bsearch' (faithful BCSR: the min search and the
+    binary-search reverse lookup in one launch).  'vc_fused' is not a
+    per-cycle step: ``run_cycles`` drives it as K cycles per launch
+    (``repro_torch.kernels.discharge``)."""
     if mode == "vc":
         return vc_step
     if mode == "tc":
-        raise _not_ported(f"mode {mode!r}")
+        return tc_step
     if mode == "vc_fused":
         raise ValueError("mode 'vc_fused' is not a per-cycle step; "
                          "run_cycles drives it K cycles per launch")
@@ -431,9 +491,10 @@ def solve_impl(r: ResidualCSR, s: int, t: int, mode: str = "vc",
                scan_chunk: int | None = None) -> SolveStats:
     """Full max-flow solve: preflow -> [cycles -> global relabel]* -> e(t).
 
-    ``mode``: 'vc' (paper's WBPR on plain PyTorch ops) or one of the
-    ``KERNEL_MODES`` — kernel modes also route the global relabel's
-    Bellman-Ford sweeps through the min-search kernel.  ``device``:
+    ``mode``: 'vc' (paper's WBPR on plain PyTorch ops), 'tc' (the
+    thread-centric baseline) or one of the ``KERNEL_MODES`` — kernel
+    modes also route the global relabel's Bellman-Ford sweeps through the
+    min-search kernel.  ``device``:
     ``None`` is the card; ``"cpu"`` runs the kernels' plain versions.
 
     ``max_cycles`` (optional) is an exact total cycle budget: the remaining
@@ -450,8 +511,8 @@ def solve_impl(r: ResidualCSR, s: int, t: int, mode: str = "vc",
     This is the single-instance engine behind the facade; call it through
     ``repro_torch.api.Solver``.
     """
-    if mode not in PORTED_MODES:
-        _make_step(mode)  # raises: not ported, or unknown
+    if mode not in ALL_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
     g, meta, res0 = to_device(r, device)
     n = meta.n
     if s == t or meta.num_arcs == 0 or meta.deg_max == 0:
@@ -509,3 +570,100 @@ def solve_impl(r: ResidualCSR, s: int, t: int, mode: str = "vc",
     stats.maxflow = int(state.e[t])
     stats.state = state
     return stats
+
+
+def host_array(x) -> np.ndarray:
+    """A numpy view of a state array, from a tensor on any device."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def convert_preflow_to_flow(r: ResidualCSR, state: PRState, s: int,
+                            t: int, reference: bool = False,
+                            use_kernel: bool = False,
+                            device=None) -> np.ndarray:
+    """Phase 2: the solver terminates with a maximum *preflow* (stranded
+    excess at deactivated vertices).  Return that excess to the source by
+    cancelling flow backwards, yielding a genuine max flow; returns the
+    corrected ``res`` array (int64 numpy).  ``state``'s arrays may be
+    numpy arrays or tensors on any device.
+
+    The default runs the device phase 2 (``repro_torch.core.phase2``) on
+    ``device`` (``None`` = the card).  ``use_kernel=True`` runs its
+    segmented mins on the min-search kernel (identical results; the same
+    ``minh_fn`` hook the kernel solve modes use).  ``reference=True``
+    runs the host-side per-excess-vertex BFS: the test oracle.
+    """
+    if not reference:
+        from repro_torch.core import phase2
+
+        minh_fn = None
+        if use_kernel:
+            from repro_torch.kernels import ops as kops
+
+            minh_fn = kops.min_neighbor_minh_fn()
+        return phase2.convert_preflow_to_flow_device(r, state, s, t,
+                                                     minh_fn=minh_fn,
+                                                     device=device)
+    return _convert_preflow_to_flow_host(r, state, s, t)
+
+
+def _convert_preflow_to_flow_host(r: ResidualCSR, state: PRState, s: int,
+                                  t: int) -> np.ndarray:
+    """Host-side reference phase 2: one BFS toward ``s`` per excess vertex
+    over arcs currently carrying flow inward, cancelling along the found
+    path.  O(V*E) worst case — kept as the oracle for the device path."""
+    res = host_array(state.res).astype(np.int64)
+    res0 = np.asarray(r.res0)
+    e = host_array(state.e).astype(np.int64)
+    indptr, heads, rev = r.indptr, r.heads, r.rev
+    for v0 in range(r.n):
+        # drain each vertex with stranded excess
+        while v0 not in (s, t) and e[v0] > 0:
+            # BFS back toward s over arcs currently carrying flow inward;
+            # any positive excess is flow-connected to the source, so the
+            # search always reaches s (greedy walks can dead-end, BFS not)
+            parent = {v0: None}  # w -> (closer-to-v0 vertex, arc w->it)
+            frontier = [v0]
+            while frontier and s not in parent:
+                nxt = []
+                for v in frontier:
+                    for a in range(indptr[v], indptr[v + 1]):
+                        ra, w = rev[a], heads[a]  # ra: w -> v
+                        if res0[ra] - res[ra] > 0 and w not in parent:
+                            parent[w] = (v, ra)
+                            if w == s:
+                                break
+                            nxt.append(w)
+                    if s in parent:
+                        break
+                frontier = nxt
+            if s not in parent:  # not an assert: must survive python -O
+                raise RuntimeError(
+                    f"preflow decomposition from vertex {v0} did not reach "
+                    "the source — the state is not a valid preflow for this "
+                    "graph (excess must be flow-connected to s)")
+            path, cur = [], s
+            while cur != v0:  # unwind s -> v0, collecting flow arcs
+                cur, arc = parent[cur]
+                path.append(arc)
+            d = min(int(e[v0]), min(int(res0[a] - res[a]) for a in path))
+            for a in path:  # cancel d units of flow on every path arc
+                res[a] += d
+                res[rev[a]] -= d
+            e[v0] -= d
+    return res
+
+
+def flows_from_state(r: ResidualCSR, state: PRState, s: int | None = None,
+                     t: int | None = None, reference: bool = False,
+                     device=None) -> np.ndarray:
+    """Per-coalesced-edge net flow u->v.  With (s, t) given, stranded
+    preflow excess is cancelled first (exact flow decomposition, on
+    ``device`` as :func:`convert_preflow_to_flow` runs it)."""
+    if s is not None:
+        res = convert_preflow_to_flow(r, state, s, t, reference=reference,
+                                      device=device)
+    else:
+        res = host_array(state.res)
+    arc = np.asarray(r.pair_arc)
+    return np.asarray(r.res0)[arc] - res[arc]

@@ -10,7 +10,7 @@ from __future__ import annotations
 import argparse
 import time
 
-from repro_torch.core.pushrelabel import PORTED_MODES
+from repro_torch.core.pushrelabel import ALL_MODES
 
 
 def main(argv=None):
@@ -20,7 +20,7 @@ def main(argv=None):
                              "dimacs"])
     ap.add_argument("--n", type=int, default=2000)
     ap.add_argument("--layout", default="bcsr", choices=["rcsr", "bcsr"])
-    ap.add_argument("--mode", default="vc", choices=list(PORTED_MODES))
+    ap.add_argument("--mode", default="vc", choices=list(ALL_MODES))
     ap.add_argument("--backend", default="single",
                     choices=["single", "batched"])
     ap.add_argument("--device", default=None,

@@ -258,17 +258,19 @@ def test_batched_max_cycles_budget(mode, monkeypatch):
 
 
 def test_batched_refusals():
+    """An unknown mode and an empty batch are refused; ``phase2=True``
+    and ``tc``, ported now, run (and ``tpr.ALL_MODES`` is every mode)."""
     _, ts, _ = _instances(8, "bcsr")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tb.batched_solve_impl(list(ts), device="cpu", phase2=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.batched_solve_impl(list(ts), mode="tc", device="cpu")
+    assert tb.batched_solve_impl(list(ts), device="cpu",
+                                 phase2=True).corrected
+    assert not tb.batched_solve_impl(list(ts), mode="tc",
+                                     device="cpu").corrected
     with pytest.raises(ValueError, match="batched mode"):
         tb.batched_solve_impl(list(ts), mode="fast", device="cpu")
     with pytest.raises(ValueError, match="empty"):
         tb.pack_instances([], device="cpu")
     assert tb.round_up_pow2(5) == 8 and tb.round_up_pow2(0, lo=2) == 2
-    assert tpr.PORTED_MODES == MODES
+    assert set(tpr.ALL_MODES) == {*MODES, "tc"}
 
 
 @pytest.mark.parametrize("scan_chunk", [1, 3, 4])

@@ -16,6 +16,7 @@ from repro_torch.core.csr import Graph, build_residual
 from repro_torch.core.ref_maxflow import dinic_maxflow
 from repro_torch.graphs.generators import random_sparse, washington_rlg
 from repro_torch.kernels import discharge as tdis
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.core import pushrelabel as tpr
 from repro_torch.kernels.revsearch import bcsr_rev_search, search_steps
@@ -605,3 +606,126 @@ def test_fused_solve_matches_cpu(cuda, backend):
         for f in ("res", "h", "e"):
             assert torch.equal(getattr(a.state, f).cpu(),
                                getattr(b.state, f)), f
+
+
+def _stranded_preflow(rows=40, cols=40, seed=7):
+    """A ``vc_kernel_bsearch`` solve on the card of a washington graph
+    whose final preflow strands excess: ``(residual, s, t, solution)``."""
+    p = MaxflowProblem(*washington_rlg(rows, cols, seed=seed))
+    sol = Solver(mode="vc_kernel_bsearch").solve(p)
+    e = sol.state.e.clone()
+    e[[p.s, p.t]] = 0
+    assert int(e.sum()) > 0, "no stranded excess: phase 2 would be idle"
+    return p.residual("bcsr"), p.s, p.t, sol
+
+
+def test_kernel_phase2_matches_plain(cuda):
+    """Phase 2 on the min-search kernel (dense sweeps, AVQ cancellation
+    selection) == the plain phase 2 on the card and on the CPU, bit for
+    bit; it launches both gather forms and nothing else of the kernels."""
+    r, s, t, sol = _stranded_preflow()
+    before = (tile_min_neighbor_gather.launches,
+              tile_min_neighbor_gather.dense_launches,
+              tile_min_neighbor.launches, tile_min_neighbor_gather_rev.launches,
+              bcsr_rev_search.launches)
+    kern = tpr.convert_preflow_to_flow(r, sol.state, s, t, use_kernel=True)
+    after = (tile_min_neighbor_gather.launches,
+             tile_min_neighbor_gather.dense_launches,
+             tile_min_neighbor.launches,
+             tile_min_neighbor_gather_rev.launches, bcsr_rev_search.launches)
+    assert after[1] > before[1] and after[0] - after[1] > before[0] - before[1]
+    assert after[2:] == before[2:]
+    plain = tpr.convert_preflow_to_flow(r, sol.state, s, t)
+    cpu = tpr.convert_preflow_to_flow(r, sol.state, s, t, device="cpu")
+    np.testing.assert_array_equal(kern, plain)
+    np.testing.assert_array_equal(kern, cpu)
+    host = sol.warm_start
+    assert host.device.type == "cuda" and not host.corrected
+    np.testing.assert_array_equal(host.arrays()[0], kern)
+    host.validate()
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_batched_kernel_phase2_matches_plain(cuda, scan):
+    """The batched phase 2 with the kernel hook (each sweep and selection
+    one launch spanning the batch) == without, on the card, and == the
+    CPU's, rows of different sizes."""
+    insts = []
+    for i, (rows, cols) in enumerate(((20, 20), (13, 27), (24, 16))):
+        g, s, t = washington_rlg(rows, cols, seed=30 + i)
+        insts.append((build_residual(g, "bcsr"), s, t))
+    bg, meta, res0, triv = tb.pack_instances(insts)
+    out = tb.batched_resolve(bg, meta, tb.batched_preflow(bg, meta, res0),
+                             trivial=triv, mode="vc_kernel_bsearch")
+    hook = kops.min_neighbor_minh_fn()
+    got, left = tb.batched_phase2(bg, meta, res0, out.state, scan=scan,
+                                  minh_fn=hook)
+    want, wleft = tb.batched_phase2(bg, meta, res0, out.state, scan=scan)
+    tb.check_phase2_leftover(left)
+    cbg, cmeta, cres0, _ = tb.pack_instances(insts, device="cpu")
+    cpu, _ = tb.batched_phase2(cbg, cmeta, cres0, tb.BatchedPRState(
+        *(x.cpu() for x in out.state)), scan=scan)
+    assert torch.equal(left, wleft)
+    for f in ("res", "e"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert torch.equal(getattr(got, f).cpu(), getattr(cpu, f)), f
+
+
+def _bfs_source_side(r, res, s):
+    """The reference's min-cut BFS, in numpy: the vertices reachable from
+    ``s`` over arcs with residual, level by level."""
+    reach = np.zeros(r.n, bool)
+    reach[s] = True
+    while True:
+        out = (res > 0) & reach[r.tails] & ~reach[r.heads]
+        nxt = np.unique(r.heads[out])
+        if nxt.size == 0:
+            return reach
+        reach[nxt] = True
+
+
+def test_device_min_cut_matches_numpy_bfs(cuda):
+    """``Solution.min_cut()`` of a card solve (its reach sweeps on the
+    kernel's dense form) == a numpy BFS over the corrected flow: the
+    source side, the crossing arcs, their capacity == the max flow ==
+    Dinic; every cut arc saturated."""
+    r, s, t, sol = _stranded_preflow()
+    cut = sol.min_cut()
+    res, _ = sol.warm_start.arrays()
+    reach = _bfs_source_side(r, res.astype(np.int64), s)
+    np.testing.assert_array_equal(cut.source_side, reach)
+    crossing = np.nonzero(reach[r.tails] & ~reach[r.heads])[0]
+    np.testing.assert_array_equal(cut.cut_arcs, crossing)
+    assert (res[crossing] == 0).all()
+    g = sol.problem.graph
+    assert cut.value == sol.value == dinic_maxflow(g, s, t)
+    assert cut.source_side[s] and not cut.source_side[t]
+
+
+@pytest.mark.parametrize("backend", ["single", "batched"])
+def test_tc_on_the_card_matches_vc(cuda, backend):
+    """``tc`` on the card (plain PyTorch ops, no kernel) == ``vc`` on the
+    card: value, counts and final (single) or corrected (batched)
+    states."""
+    probs = [MaxflowProblem(*washington_rlg(24, 24, seed=3))]
+    if backend == "batched":
+        probs.append(MaxflowProblem(*washington_rlg(17, 29, seed=4)))
+
+    def run(mode):
+        solver = Solver(mode=mode, backend=backend)
+        if backend == "batched":
+            return solver.solve_many(probs)
+        return [solver.solve(p) for p in probs]
+
+    before = (tile_min_neighbor_gather.launches,
+              tile_min_neighbor_gather_rev.launches)
+    tc = run("tc")
+    assert (tile_min_neighbor_gather.launches,
+            tile_min_neighbor_gather_rev.launches) == before
+    for a, b in zip(tc, run("vc")):
+        assert a.value == b.value
+        for f in ("cycles", "rounds", "global_relabels", "gr_sweeps"):
+            assert getattr(a.stats, f) == getattr(b.stats, f), f
+        for f in ("res", "h", "e"):
+            assert a.state.res.device.type == "cuda"
+            assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f

@@ -181,21 +181,18 @@ def test_bsearch_step_is_one_fused_search(monkeypatch):
 
 
 def test_modes_not_ported_raise():
-    """``tc`` is not ported; ``vc_fused`` is not a per-cycle step (the
-    reference's ``_make_step`` refuses it too) but runs in
-    ``run_cycles``."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpr._make_step("tc")
+    """Every mode is ported (``tc`` is the step ``tpr.tc_step``);
+    ``vc_fused`` is not a per-cycle step (the reference's ``_make_step``
+    refuses it too) but runs in ``run_cycles``, and an unknown mode
+    raises, in the step factory and in the solve."""
+    assert tpr._make_step("tc") is tpr.tc_step
     with pytest.raises(ValueError, match="per-cycle"):
         tpr._make_step("vc_fused")
     with pytest.raises(ValueError, match="unknown mode"):
         tpr._make_step("nope")
-    _, (rt, gt, mt, res0t) = _pair(0)
-    state = tpr.preflow(gt, mt, res0t, 0)
-    for telemetry in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpr.run_cycles(gt, mt, state, 0, mt.n - 1, mode="tc",
-                           telemetry=telemetry)
+    rt = _pair(0)[1][0]
+    with pytest.raises(ValueError, match="unknown mode"):
+        tpr.solve_impl(rt, 0, rt.n - 1, mode="nope", device="cpu")
 
 
 @pytest.mark.parametrize("chunk", [1, 3, 4, 7])

@@ -108,22 +108,25 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_not_ported_yet_raises():
-    """What stays unported raises, naming its ROADMAP entry: ``tc`` (on
-    both backends), ``distributed``, and the views that need phase 2 (on
-    single and batched solutions)."""
+    """What stays unported raises, naming its ROADMAP entry:
+    ``distributed``, ``open_stream`` and a capacity decrease below the
+    routed flow (its device drain is the streaming item), on single and
+    batched solutions."""
     _, gt, s, t = _instance("genrmf")
     p = MaxflowProblem(gt, s, t)
-    for kw in ({"mode": "tc"}, {"mode": "tc", "backend": "batched"},
-               {"backend": "distributed"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Solver(device="cpu", **kw).solve(p)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Solver(device="cpu", backend="distributed").solve(p)
     for backend in ("single", "batched"):
-        sol = Solver(device="cpu", backend=backend).solve(p)
-        for view in (sol.flows, sol.min_cut, sol.matching):
-            with pytest.raises(NotImplementedError, match="phase 2"):
-                view()
-        with pytest.raises(NotImplementedError, match="phase 2"):
-            sol.warm_start
+        solver = Solver(device="cpu", backend=backend)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*Streaming"):
+            solver.open_stream(p)
+        sol = solver.solve(p)
+        res, _ = sol.warm_start.arrays()
+        r = sol.warm_start.residual
+        a = int(np.argmax(r.res0 - res))  # the arc carrying most flow
+        with pytest.raises(NotImplementedError, match="ROADMAP.*Streaming"):
+            solver.resolve(sol.warm_start,
+                           [(int(r.tails[a]), int(r.heads[a]), -int(r.res0[a]))])
     with pytest.raises(ValueError, match="unknown mode"):
         SolverOptions(mode="fast", device="cpu")
 
@@ -136,7 +139,7 @@ def test_int32_narrowing_is_checked():
             tgen.Graph(g.n, g.edges, g.cap), 0, 2))
 
 
-@pytest.mark.parametrize("mode", MODES + ("vc_fused",))
+@pytest.mark.parametrize("mode", MODES + ("vc_fused", "tc"))
 def test_cli_smoke_verifies(mode, capsys):
     tlaunch.main(["--smoke", "--device", "cpu", "--verify", "--mode", mode,
                   "--generator", "grid"])
@@ -144,7 +147,7 @@ def test_cli_smoke_verifies(mode, capsys):
     assert "SMOKE PASS" in out and f"mode={mode}" in out
 
 
-@pytest.mark.parametrize("mode", MODES + ("vc_fused",))
+@pytest.mark.parametrize("mode", MODES + ("vc_fused", "tc"))
 def test_cli_batched_smoke_verifies(mode, capsys):
     tlaunch.main(["--smoke", "--device", "cpu", "--verify", "--mode", mode,
                   "--generator", "grid", "--backend", "batched"])
