@@ -40,7 +40,23 @@ just before it and read just after:
 * ``warm_path`` — on the small graph: 64 capacity increases of +50 (on
   arcs of the min cut, chosen by a seeded generator) re-solved warm
   against a cold solve and Dinic, a decrease within an arc's slack
-  answered with no solve, and a decrease below the routed flow refused.
+  answered with no solve, and a decrease below the routed flow drained
+  on the device (the gather entry's two forms) and re-solved warm,
+  against a cold solve and Dinic;
+* ``drain_kernel_vs_plain`` — the main path's corrected solution drained
+  after the first batch of an adversarial update trace (source arcs
+  zeroed, sink arcs raised), by ``reroute.apply_signed`` on the kernel
+  and on the plain path, bit-equal;
+* ``pooled_drain`` — the batched path's 8 corrected solutions, each with
+  an adversarial batch, drained in one pooled dispatch
+  (``reroute.apply_signed_batched``): every sweep step and selection one
+  launch for the whole pool, each row bit-equal to its own drain and to
+  the plain pooled drain;
+* ``stream_path`` — ``Solver(mode="vc_kernel_bsearch").open_stream`` on
+  the main graph, then 3 adversarial batches and one mixed batch with a
+  new arc pair (a structural rebuild around the routed flow); at every
+  version the flow is feasible and its min cut has the version's value,
+  and the last value equals a cold solve of the folded graph.
 
 The fused discharge is also held against its plain version at the
 batched path's own shapes (after the first global relabel and mid-solve)
@@ -48,8 +64,9 @@ and on more rows than the card holds resident blocks, through both its
 entries: the in-place one the drivers run, with its gate open and closed,
 and the out-of-place one.  It checks that one engine chunk of cycles
 (``vc_kernel_bsearch``, ``vc_fused`` and ``tc``, single and batched), of
-global-relabel sweeps and of phase 2's cancellations never synchronises
-with the host, and times every kernel beside its plain version, a
+global-relabel sweeps, of phase 2's cancellations and of the streaming
+drain's multi-sink sweeps and deficit cancellations (single and pooled,
+on the kernel and plain) never synchronises with the host, and times every kernel beside its plain version, a
 PyTorch yardstick call
 where one exists and its memory bound, the min search's hook with its key
 built by eager ops against the entry that gathers the key itself, and the
@@ -131,6 +148,10 @@ MATCHING_SIDE = {False: 131072, True: 2048}
 #: the warm path's capacity increases: arcs raised, and by how much
 WARM_ARCS = 64
 WARM_DELTA = 50
+#: the streaming phases' update traces: adversarial batches (each zeroes
+#: source arcs and raises sink arcs, alternately), events a batch
+STREAM_ADVERSARIAL = 3
+STREAM_EVENTS = 4
 #: the path whose launches each kernel's row reports (the rest: "main")
 ROW_PATH = {"tile_min_neighbor_gather[avq]": "vc_kernel",
             "fused_discharge_batched": "fused"}
@@ -605,7 +626,8 @@ def warm_path(torch, ctx):
     """Phase ``warm_path``: warm re-solves of the small graph's
     paper-faithful solution: capacity increases against a cold solve and
     scipy's Dinic, a slack-only decrease answered with no solve, and an
-    overflowing decrease refused."""
+    overflowing decrease drained on the device and re-solved warm,
+    against a cold solve and scipy's Dinic."""
     import numpy as np
 
     from repro_torch.api import CapacityUpdate, MaxflowProblem, Solver
@@ -648,17 +670,24 @@ def warm_path(torch, ctx):
     require(dec.value == cold.value and dec.stats.cycles == 0
             and noop.value == before + 1 and not any(launches_dec.values()),
             "the slack-only decrease was not answered without a solve")
-    # a decrease below the routed flow needs the streaming tier's drain
+    # a decrease below the routed flow: drained on the device, then warm
     carrying = np.nonzero((r.res0 > 0) & (r.res0 - res > 0))[0]
     b = int(carrying[0])
-    try:
-        solver.resolve(handle, [CapacityUpdate(
-            int(r.tails[b]), int(r.heads[b]), -int(r.res0[b]))])
-        refused = False
-    except NotImplementedError as exc:
-        refused = "Streaming" in str(exc)
-    require(refused, "an overflowing decrease was not refused naming the "
-            "streaming item")
+    applies = REGISTRY.counter("stream.reroute.applies")
+    before = applies.value
+    over, wall_over, launches_over = driven(torch, lambda: solver.resolve(
+        handle, [CapacityUpdate(int(r.tails[b]), int(r.heads[b]),
+                                -int(r.res0[b]))]), VC_KERNEL_KERNELS)
+    require(over.stats.rerouted and over.stats.warm
+            and applies.value == before + 1,
+            "the overflowing decrease was not drained and re-solved warm")
+    r3 = over.warm_start.residual
+    again3, wall_again3, _ = driven(torch, lambda: solver.solve(
+        MaxflowProblem.from_residual(r3, p.s, p.t)), MAIN_KERNELS)
+    want3, _ = scipy_maxflow(r3.n, np.stack([r3.tails, r3.heads], 1),
+                             r3.res0, p.s, p.t)
+    require(over.value == again3.value == want3, f"drained {over.value} "
+            f"!= cold {again3.value} / scipy Dinic {want3}")
     emit({"phase": "warm_path", "mode": "vc_kernel_bsearch",
           "increases": len(ups), "delta": WARM_DELTA,
           "cut_arcs": int(cut.size), "cold_value": cold.value,
@@ -667,18 +696,339 @@ def warm_path(torch, ctx):
           "warm_wall_s": wall_warm, "warm_launches": launches_warm,
           "cold_updated_cycles": again.stats.cycles,
           "cold_updated_wall_s": wall_again, "scipy_value": want,
-          "noop_decrease_wall_s": wall_dec, "overflow_refused": True})
+          "noop_decrease_wall_s": wall_dec,
+          "overflow_units": int(r.res0[b] - res[b]),
+          "drained_value": over.value, "drained_cycles": over.stats.cycles,
+          "drained_wall_s": wall_over, "drained_launches": launches_over,
+          "drained_cold_cycles": again3.stats.cycles,
+          "drained_cold_wall_s": wall_again3, "drained_scipy_value": want3})
     return {"warm": launches_warm}
 
 
+def adversarial_deltas(r, graph, s, t):
+    """The first batch of the adversarial update trace of ``graph``, as
+    ``(batch, signed deltas against r)``."""
+    from repro_torch.graphs.generators import update_trace
+    from repro_torch.streaming import normalize_events
+
+    batch = update_trace(graph, s, t, n_batches=1, batch_size=STREAM_EVENTS,
+                         adversarial=True, seed=SEED)[0]
+    return batch, normalize_events(r, batch)[1]
+
+
+def drain_kernel_vs_plain(torch, problem, ctx):
+    """Phase ``drain_kernel_vs_plain``: the main path's corrected solution
+    drained after the first adversarial batch by ``reroute.apply_signed``
+    on the min-search kernel and on the plain path, both on the card:
+    bit-equal, and the plain drain launches nothing."""
+    import numpy as np
+
+    from repro_torch.streaming import reroute
+
+    r, s, t = problem.residual("bcsr"), problem.s, problem.t
+    res, e = ctx["main"].warm_start.arrays()  # corrected in phase2_path
+    t0 = time.perf_counter()
+    batch, ups = adversarial_deltas(r, problem.graph, s, t)
+    gen_s = time.perf_counter() - t0
+    ctx["drain_prep"] = reroute.prepare_signed(r, res, e, s, t, ups)
+    kern, wall_k, launches_k = driven(torch, lambda: reroute.apply_signed(
+        r, res, e, s, t, ups, use_kernel=True), VC_KERNEL_KERNELS)
+    plain, wall_p, launches_p = driven(torch, lambda: reroute.apply_signed(
+        r, res, e, s, t, ups))
+    require(not any(launches_p.values()), "the plain drain launched a kernel")
+    require(kern.rerouted and kern.ok and kern.overflow > 0,
+            "the adversarial batch was not drained")
+    require(np.array_equal(kern.res, plain.res)
+            and np.array_equal(kern.e, plain.e)
+            and (kern.value, kern.budget, kern.overflow, kern.ok)
+            == (plain.value, plain.budget, plain.overflow, plain.ok),
+            "the drain on the kernel != the plain drain on the card")
+    emit({"phase": "drain_kernel_vs_plain", "events": len(batch),
+          "deltas": ups, "trace_gen_s": gen_s, "overflow": kern.overflow,
+          "value_before": int(e[t]), "value": kern.value,
+          "budget": kern.budget, "kernel_wall_s": wall_k,
+          "plain_wall_s": wall_p, "kernel_launches": launches_k,
+          "same_as_plain": True})
+    return {"drain": launches_k}
+
+
+def pooled_drain(torch, ctx):
+    """Phase ``pooled_drain``: the batched path's corrected solutions, each
+    with its graph's first adversarial batch, drained in ONE pooled
+    dispatch on the kernel: every call of the min-search hook spans the
+    whole pool and is one launch, and each row is bit-equal to its own
+    drain on the card and to the plain pooled drain."""
+    import numpy as np
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.obs import REGISTRY
+    from repro_torch.streaming import reroute
+
+    items = []
+    for sol in ctx["sols"]["vc_kernel_bsearch"]:
+        h = sol.warm_start
+        res, e = h.arrays()
+        items.append((h.residual, res, e, h.s, h.t, adversarial_deltas(
+            h.residual, sol.problem.graph, h.s, h.t)[1]))
+    ctx["pool_preps"] = [reroute.prepare_signed(*it) for it in items]
+    calls = {"dense": 0, "avq": 0, "rows": set()}
+    hook = kops.min_neighbor_minh_fn
+
+    def counting_hook():
+        fn = hook()
+
+        def counted(g, meta, state, avq, q_valid):
+            calls["dense" if avq is None else "avq"] += 1
+            calls["rows"].add(tuple(state.res.shape[:-1]))
+            return fn(g, meta, state, avq, q_valid)
+        return counted
+
+    disp = REGISTRY.counter("stream.reroute.batched_dispatches")
+    before = disp.value
+    kops.min_neighbor_minh_fn = counting_hook
+    try:
+        pooled, wall, launches = driven(
+            torch, lambda: reroute.apply_signed_batched(items,
+                                                        use_kernel=True),
+            VC_KERNEL_KERNELS)
+    finally:
+        kops.min_neighbor_minh_fn = hook
+    require(disp.value == before + 1, "the pool was not one dispatch")
+    require(calls["rows"] == {(len(items),)}
+            and launches["tile_min_neighbor_gather[dense]"] == calls["dense"]
+            and launches["tile_min_neighbor_gather[avq]"] == calls["avq"],
+            f"a pooled step was not one launch for the pool: {calls}, "
+            f"{launches}")
+    plain, wall_p, launches_p = driven(
+        torch, lambda: reroute.apply_signed_batched(items))
+    require(not any(launches_p.values()), "the plain pool launched a kernel")
+    per_row = {"tile_min_neighbor_gather[dense]": 0,
+               "tile_min_neighbor_gather[avq]": 0}
+    for i, (a, b, it) in enumerate(zip(pooled, plain, items)):
+        own, _, own_l = driven(torch, lambda it=it: reroute.apply_signed(
+            *it, use_kernel=True))
+        for k in per_row:
+            per_row[k] += own_l[k]
+        for x in (b, own):
+            require(np.array_equal(a.res, x.res) and np.array_equal(a.e, x.e)
+                    and (a.value, a.budget, a.overflow, a.ok)
+                    == (x.value, x.budget, x.overflow, x.ok),
+                    f"pooled drain row {i} != its own drain / the plain pool")
+        require(a.rerouted and a.ok, f"pooled row {i} was not drained")
+    emit({"phase": "pooled_drain", "rows": len(items),
+          "overflow": [x.overflow for x in pooled],
+          "values": [x.value for x in pooled], "wall_s": wall,
+          "plain_wall_s": wall_p, "launches": launches,
+          "per_row_launches_sum": per_row, "same_as_plain": True,
+          "same_as_per_row": True})
+    return {"pooled_drain": launches}
+
+
+def check_version(sol, s, t):
+    """A version's flow is feasible on its capacities (each pair's net
+    flow within its two arcs' capacities, conserved off ``s`` and ``t``)
+    and its min cut has the version's value: together, proof that the
+    flow is maximal.  Returns the cut's arc count."""
+    import numpy as np
+
+    r = sol.warm_start.residual
+    flows = sol.flows()
+    arc = r.pair_arc
+    require(bool((flows <= r.res0[arc]).all()
+                 and (-flows <= r.res0[r.rev[arc]]).all()),
+            "a version's flow exceeds a capacity")
+    div = flow_divergence(r, flows)
+    inner = np.ones(r.n, bool)
+    inner[[s, t]] = False
+    require(div[t] == sol.value and div[s] == -sol.value
+            and not div[inner].any(), "a version's flow is not conserved")
+    cut = sol.min_cut()
+    require(cut.value == sol.value, f"a version's min cut {cut.value} != "
+            f"its value {sol.value}")
+    return int(cut.cut_arcs.size)
+
+
+def stream_path(torch, problem):
+    """Phase ``stream_path``: a streaming session on the main graph in the
+    paper-faithful mode, through the adversarial batches and one mixed
+    batch with a new arc pair; every version checked by
+    :func:`check_version`, the last against a cold solve of the folded
+    graph."""
+    from repro_torch.api import MaxflowProblem, Solver
+    from repro_torch.graphs.generators import (apply_events_to_graph,
+                                               update_trace)
+    from repro_torch.obs import REGISTRY, TRACER
+    from repro_torch.streaming import stream
+
+    graph, s, t = problem.graph, problem.s, problem.t
+    t0 = time.perf_counter()
+    batches = update_trace(graph, s, t, n_batches=STREAM_ADVERSARIAL,
+                           batch_size=STREAM_EVENTS, adversarial=True,
+                           seed=SEED)
+    gen_adv = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mixed = update_trace(graph, s, t, n_batches=1, batch_size=STREAM_EVENTS,
+                         p_insert=0.5, p_delete=0.0, seed=SEED)
+    gen_mixed = time.perf_counter() - t0
+    batches += mixed
+
+    class Recording(Solver):
+        """Keeps the last warm re-solve's solution, for its cycles."""
+
+        def resolve(self, handle, updates):
+            self.last = super().resolve(handle, updates)
+            return self.last
+
+    rebuild_s = []
+    rebuild = stream.rebuild_with_state
+
+    def timed_rebuild(*args):
+        t0 = time.perf_counter()
+        out = rebuild(*args)
+        rebuild_s.append(time.perf_counter() - t0)
+        return out
+
+    solver = Recording(mode="vc_kernel_bsearch")
+    sg, wall_open, launches_open = driven(
+        torch, lambda: solver.open_stream(problem), MAIN_KERNELS)
+    _, wall_check, _ = driven(torch, lambda: check_version(sg.query(0), s, t))
+    emit({"phase": "stream_version", "version": 0, "value": sg.query(0).value,
+          "wall_s": wall_open, "launches": launches_open,
+          "check_wall_s": wall_check, "trace_gen_adversarial_s": gen_adv,
+          "trace_gen_mixed_s": gen_mixed})
+    counters = ("stream.reroute.overflow_units",
+                "stream.reroute.drained_units")
+    value = None
+    stream.rebuild_with_state = timed_rebuild
+    try:
+        for i, batch in enumerate(batches):
+            before = [REGISTRY.counter(c).value for c in counters]
+            solver.last = None
+            TRACER.clear()
+            TRACER.enable()
+            try:
+                v, wall, launches = driven(torch, lambda b=batch: sg.apply(b))
+            finally:
+                TRACER.disable()
+            spans = {}
+            for ev in TRACER.to_dict()["traceEvents"]:
+                spans.setdefault(ev["name"], []).append(ev["ts"])
+            TRACER.clear()
+            drain = spans.get("stream.reroute.pooled", [0.0, 0.0])
+            over, drained = (REGISTRY.counter(c).value - b_
+                             for c, b_ in zip(counters, before))
+            require(not over or (
+                launches["tile_min_neighbor_gather[dense]"] > 0
+                and launches["tile_min_neighbor_gather[avq]"] > 0),
+                "a drain did not launch both forms of the gather entry")
+            q = sg.query(v)
+            cut_arcs, wall_check, _ = driven(
+                torch, lambda q=q: check_version(q, s, t))
+            value = q.value
+            emit({"phase": "stream_version", "version": v,
+                  "kind": ("adversarial" if i < STREAM_ADVERSARIAL
+                           else "mixed"),
+                  "events": [repr(ev) for ev in batch], "value": value,
+                  "wall_s": wall, "drain_wall_s": 1e-6 * (drain[1] - drain[0]),
+                  "overflow_units": over, "drained_units": drained,
+                  "cycles": (solver.last.stats.cycles if solver.last
+                             else None),
+                  "rerouted": bool(solver.last and solver.last.stats.rerouted),
+                  "launches": launches, "check_wall_s": wall_check,
+                  "cut_arcs": cut_arcs})
+            if i == 0:
+                require(over > 0, "the first adversarial batch overflowed "
+                        "nothing")
+    finally:
+        stream.rebuild_with_state = rebuild
+    require(sg.stats()["structural_rebuilds"] == 1 and len(rebuild_s) == 1,
+            f"the mixed batch made no structural rebuild: {sg.stats()}")
+    t0 = time.perf_counter()
+    folded = apply_events_to_graph(graph, batches)
+    fold_s = time.perf_counter() - t0
+    fp = MaxflowProblem(folded, s, t)
+    t0 = time.perf_counter()
+    fp.residual("bcsr")
+    csr_s = time.perf_counter() - t0
+    cold, wall_cold, _ = driven(torch, lambda: Solver(
+        mode="vc_kernel_bsearch").solve(fp), MAIN_KERNELS)
+    require(cold.value == value, f"the stream's last value {value} != a "
+            f"cold solve of the folded graph {cold.value}")
+    emit({"phase": "stream_path", "ok": True, "versions": len(batches) + 1,
+          "stats": sg.stats(), "rebuild_s": rebuild_s, "fold_s": fold_s,
+          "folded_csr_s": csr_s, "cold_value": cold.value,
+          "cold_wall_s": wall_cold, "cold_cycles": cold.stats.cycles})
+    sg.close()
+    return {"stream_open": launches_open}
+
+
 def views_and_modes(quick, small, torch, problem, batch, ctx, paths):
-    """The phases of phase 2, the views and ``tc``, each driven with the
-    launch counts set to 0 just before it and read just after."""
+    """The phases of phase 2, the views, ``tc`` and streaming, each driven
+    with the launch counts set to 0 just before it and read just after."""
     paths.update(tc_path(torch, ctx, batch))
     paths.update(phase2_path(torch, problem, ctx))
     batched_phase2(torch, ctx)
     paths.update(matching_path(torch, quick))
     paths.update(warm_path(torch, ctx))
+    paths.update(drain_kernel_vs_plain(torch, problem, ctx))
+    paths.update(pooled_drain(torch, ctx))
+    paths.update(stream_path(torch, problem))
+
+
+def drain_loops(torch, ctx, minh_fn) -> dict:
+    """The streaming drain's two device loops, each as ``(step, cond,
+    carry)`` of one engine chunk, from the overflows
+    ``drain_kernel_vs_plain`` (the main graph) and ``pooled_drain`` (the
+    batch) prepared: the multi-sink distance sweeps, and the deficit
+    cancellations under fixed heights; single and pooled, on the kernel
+    hook ``minh_fn`` and plain."""
+    from repro_torch.core import batched, engine
+    from repro_torch.core import pushrelabel as pr
+    from repro_torch.streaming import reroute
+
+    loops = {}
+    prep = ctx["drain_prep"]
+    s, t = prep.s, prep.t
+    g, meta, res0 = pr.to_device(prep.residual)
+    st = pr.state_from_numpy(prep.res, prep.b, prep.e)
+    sink = engine.fill_at(st.h > 0, t, True)
+    preps = ctx["pool_preps"]
+    bg, bmeta, bres0, _ = batched.pack_instances(
+        [(x.residual, x.s, x.t) for x in preps])
+    bst = batched.pack_states([(x.res, x.b, x.e) for x in preps], bmeta.n,
+                              bmeta.num_arcs)
+    rows = batched._rows(bg)
+    flat = batched._flat(rows, bmeta)
+    bsink = (bst.h > 0).scatter_(1, bg.t.long()[:, None], True)
+    moved = torch.ones((), dtype=torch.bool, device=res0.device)
+    for fn, how in ((minh_fn, "kernel"), (None, "plain")):
+        loops[f"drain sweep[{how}]"] = engine.fixpoint_loop(
+            *reroute._multi_sink_sweep(g, meta, res0 - st.res, sink, fn),
+            cap=meta.n)
+        loops[f"pooled drain sweep[{how}]"] = engine.fixpoint_loop(
+            *reroute._batched_multi_sink_sweep(rows, bmeta, bres0 - bst.res,
+                                               bsink, fn), cap=bmeta.n)
+        height = reroute._multi_sink_distances(g, meta, res0 - st.res, sink,
+                                               fn)
+        bheight = reroute._batched_multi_sink_distances(
+            rows, bmeta, bres0 - bst.res, bsink, fn)
+
+        def cancel(c, fn=fn, height=height):
+            res, b = reroute._deficit_cancel_step(g, meta, res0, c[0],
+                                                  height, c[1], s, t, fn)
+            return res, b, torch.any(b != c[1])
+
+        def bcancel(c, fn=fn, height=bheight):
+            res, b = reroute._batched_deficit_cancel_step(
+                rows, bmeta, flat, bres0, c[0], height, c[1], bg.s, bg.t,
+                fn)
+            return res, b, torch.any(b != c[1])
+
+        loops[f"deficit cancel[{how}]"] = (cancel, lambda c: c[2],
+                                           (st.res, st.h, moved))
+        loops[f"pooled deficit cancel[{how}]"] = (bcancel, lambda c: c[2],
+                                                  (bst.res, bst.h, moved))
+    return loops
 
 
 def main(argv=None) -> int:
@@ -1178,9 +1528,13 @@ def main(argv=None) -> int:
                                               device=dev))
     tc_body, tc_cond = pr.cycle_loop(g, meta, s, t, "tc", cap=1024)
     b_tc = batched.batched_cycle_loop(bbg, bmeta, bstate, "tc", 1024)
+    drains = drain_loops(torch, ctx, minh_fn)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        for name, (d_step, d_cond, d_carry) in list(drains.items()):
+            drains[name] = (d_carry, engine.run_chunk(
+                d_step, d_carry, cond_fn=d_cond, chunk=chunk))
         fp_carry = engine.run_chunk(fp_step, fp_carry, cond_fn=fp_cond,
                                     chunk=chunk)
         c_carry = engine.run_chunk(cancel, c_carry, cond_fn=lambda c: c[2],
@@ -1208,12 +1562,16 @@ def main(argv=None) -> int:
             "the sync-free chunks did not run their steps")
     require(not torch.equal(c_carry[1], state.e),
             "the sync-free cancellation chunk moved no excess")
+    for name, (d0, d1) in drains.items():
+        require(int(d1[2]) == chunk if "sweep" in name
+                else not torch.equal(d0[1], d1[1]),
+                f"the sync-free {name} chunk did not run its steps")
     emit({"phase": "no_host_sync", "ok": True, "chunk": chunk,
           "loops": ["sweep[kernel]", "cycle[vc_kernel_bsearch]",
                     "cycle[vc_fused]", "batched cycle[vc_fused]",
                     "batched cycle[vc_kernel_bsearch]",
                     "phase-2 cancel[kernel]", "cycle[tc]",
-                    "batched cycle[tc]"]})
+                    "batched cycle[tc]", *drains]})
     # and mid-solve, at the state the batched chunk left
     got = fused_discharge_batched(*bargs, *b_carry[0], n=bmeta.n,
                                   k=K_DEFAULT, counters=True)

@@ -10,6 +10,7 @@
     solution.flows()          # per-edge flows (phase 2 on the card)
     solution.min_cut()        # the saturated cut of capacity value
     Solver().resolve(solution.warm_start, [(u, v, +5)])  # warm re-solve
+    stream = Solver().open_stream(problem)  # versioned streaming session
 """
 from repro_torch.api.options import SolverOptions  # noqa: F401
 from repro_torch.api.problem import (MatchingProblem,  # noqa: F401

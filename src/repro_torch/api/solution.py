@@ -85,11 +85,12 @@ class WarmStartHandle:
       kernel in the kernel modes); batched solves hand the handle an
       already-corrected residual (``corrected=True``);
     * :meth:`apply` turns a set of signed ``CapacityUpdate``s into the
-      inputs of the next solve: increases, and decreases that stay above
-      the routed flow, yield budgeted warm-start arrays (only the new
-      capacity gets routed — the solved flow is kept).  A decrease below
-      the routed flow needs the streaming tier's device drain and raises
-      ``NotImplementedError`` until it is ported.
+      inputs of the next solve, warm for *both* signs: increases yield
+      budgeted warm-start arrays (only the new capacity gets routed —
+      the solved flow is kept), decreases reroute the overflowed flow on
+      the handle's device (``repro_torch.streaming.reroute``, on the
+      min-search kernel in the kernel modes) and re-enter with the
+      drained value as budget.
 
     Handles are value-caches, not live views: editing the graph elsewhere
     does not invalidate them.
@@ -212,24 +213,38 @@ class WarmStartHandle:
             self._corrected = True
         return self._res, self._e
 
-    def apply(self, updates) -> tuple[ResidualCSR, tuple]:
+    def apply(self, updates) -> tuple[ResidualCSR, tuple | None]:
         """Apply signed capacity updates; returns ``(updated_residual,
-        warm)``, ``warm`` the ``(res, h, e)`` warm-start triple — a warm
-        start that injects no excess means the flow is *already* maximal
-        and callers may answer without a solve.  Raises ``KeyError`` for a
-        missing arc, ``ValueError`` for a capacity driven below zero and
-        ``NotImplementedError`` for a decrease below the routed flow (its
-        device drain is not ported yet)."""
+        warm)``.
+
+        Both signs stay warm: increases grow the residual and budget the
+        injected excess by the update total; decreases cancel the
+        overflowed flow and drain the imbalance on the handle's device
+        (``repro_torch.streaming.reroute``), budgeting by the drained
+        value.  ``warm`` is the ``(res, h, e)`` warm-start triple — a
+        warm start that injects no excess means the flow is *already*
+        maximal and callers may answer without a solve — or ``None`` in
+        the defensive case that the drain stalls (the handle did not hold
+        a corrected flow); callers then cold-solve.  Raises ``KeyError``
+        for a missing arc (structural changes are the streaming tier's
+        ``rebuild_with_state``) and ``ValueError`` for a capacity driven
+        below zero."""
         from repro_torch.streaming import reroute
 
-        rr = reroute.drain_prepared([self.prepare_updates(updates)])[0]
+        rr = reroute.drain_prepared([self.prepare_updates(updates)],
+                                    use_kernel=self._use_kernel,
+                                    device=self.device)[0]
         return self.finish_updates(rr)
 
     def prepare_updates(self, updates):
         """The host half of :meth:`apply`: phase-2-correct this handle's
         state and fold the signed updates into a
-        ``reroute.PreparedReroute``.  Raises what ``apply`` raises but
-        ``NotImplementedError`` (missing arc, capacity below zero)."""
+        ``reroute.PreparedReroute`` — no drain.  Preparations from many
+        independent handles can be pooled into one device drain
+        (``reroute.drain_prepared``); :meth:`finish_updates` turns each
+        drained result back into the ``(residual, warm)`` pair ``apply``
+        returns.  Raises exactly what ``apply`` raises (missing arc,
+        capacity below zero)."""
         ups = _normalize_updates(updates)
         from repro_torch.streaming import reroute
 
@@ -237,9 +252,12 @@ class WarmStartHandle:
         return reroute.prepare_signed(self.residual, res, e, self.s,
                                       self.t, ups)
 
-    def finish_updates(self, rr) -> tuple[ResidualCSR, tuple]:
-        """Fold a ``reroute.RerouteResult`` back into the
-        ``(updated_residual, warm)`` pair :meth:`apply` returns."""
+    def finish_updates(self, rr) -> tuple[ResidualCSR, tuple | None]:
+        """Fold a drained ``reroute.RerouteResult`` back into the
+        ``(updated_residual, warm)`` pair :meth:`apply` returns (``warm``
+        is ``None`` where the drain stalled)."""
+        if not rr.ok:
+            return rr.residual, None
         warm = batched.warm_start_arrays(rr.residual, rr.res, rr.e,
                                          self.s, budget=rr.budget)
         return rr.residual, warm

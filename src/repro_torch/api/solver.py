@@ -3,7 +3,9 @@ JAX package's ``repro.api.solver``).  ``Solver.solve`` runs a single
 problem, ``Solver.solve_many`` advances a whole batch together (the
 batched core) and corrects it to flows in the same call, and
 ``Solver.resolve`` re-solves warm from a ``WarmStartHandle`` after
-capacity increases (and decreases that stay above the routed flow)."""
+signed capacity updates (a decrease below the routed flow is drained on
+the device first), and ``Solver.open_stream`` opens a versioned
+streaming session (``repro_torch.streaming``)."""
 from __future__ import annotations
 
 from collections.abc import Iterable, Sequence
@@ -142,22 +144,27 @@ class Solver:
     # -- incremental re-solves ----------------------------------------------
 
     def resolve(self, handle: WarmStartHandle, updates) -> Solution:
-        """Re-solve after capacity updates, warm.
+        """Re-solve after signed capacity updates, warm for both signs.
 
         Increases re-enter the solver (the batched core, on this
         solver's device) from the handle's phase-2-corrected residual
         with the injected excess budgeted by the update total, so only
-        the new capacity gets routed.  A warm start that injects no
-        excess (a decrease that stays above the routed flow, or a zero
-        budget) is answered directly — the flow is already maximal and
-        no solve runs (``stream.noop_resolves``).  A decrease below the
-        routed flow raises ``NotImplementedError``: its device drain is
-        the streaming slice of ROADMAP.md Queue 1.
+        the new capacity gets routed.  Decreases cancel the overflowed
+        flow and drain the imbalance on the handle's device
+        (``repro_torch.streaming.reroute``), then re-enter with the
+        drained value as budget.  Either way, a warm start that injects
+        no excess is answered directly — the flow is already maximal and
+        no solve runs (``stream.noop_resolves``).  Where the drain stalls
+        (the handle did not hold a corrected flow;
+        ``stream.reroute.stalls``) the updated graph is solved cold, on
+        this solver's device.
         """
         ups = _normalize_updates(updates)
         rerouted = any(d < 0 for _, _, d in ups)
         r2, warm = handle.apply(ups)
         problem = MaxflowProblem.from_residual(r2, handle.s, handle.t)
+        if warm is None:  # the drain stalled: cold solve
+            return self._solve_single(problem, r2)
         sol = self._warm_solution(problem, r2, handle, warm)
         sol.stats.rerouted = rerouted
         return sol
@@ -196,8 +203,14 @@ class Solver:
     # -- streaming ----------------------------------------------------------
 
     def open_stream(self, problem, max_versions: int = 8):
-        """Streaming sessions (versioned incremental re-solves) are not
-        ported yet."""
-        raise NotImplementedError(
-            "open_stream is not ported yet (see ROADMAP.md Queue 1, "
-            "'Streaming')")
+        """Open a long-lived streaming session: solve ``problem`` once,
+        then fold edge insert / delete / re-weight events into new
+        warm-started versions via ``StreamHandle.apply(events)`` and
+        answer ``query(version)`` from the retained chain.  Returns a
+        ``repro_torch.streaming.StreamHandle`` (see
+        ``repro_torch.streaming.stream`` for the event vocabulary and
+        version semantics)."""
+        from repro_torch.streaming.stream import StreamingGraph
+
+        return StreamingGraph(problem, solver=self,
+                              max_versions=max_versions)

@@ -62,25 +62,30 @@ def flow_heights_impl(g: pr.DeviceGraph, meta, res0, res, s: int,
                                       minh_fn=minh_fn)
 
 
-def _cancel_apply(heads, rev, res, e, fin, height, u, q_valid, minh, argarc):
+def _cancel_apply(heads, rev, res, e, fin, height, u, q_valid, minh, argarc,
+                  outbound: bool = False):
     """Cancel ``min(e, fin)`` units on each lane's selected arc where it
     is strictly height-decreasing: ``res[arc] -= d`` and
     ``res[rev[arc]] += d`` undo the inbound flow, and the excess moves
-    from ``u`` to ``heads[arc]``.  Lanes ``u`` (one per vertex slot,
-    ``q_valid`` marking real ones) and arcs index flat arrays, so one
-    call serves an instance or a batch seen as one graph.  A lane that
-    does not cancel adds zero at a slot of its own (the reference drops
-    its scatter)."""
+    from ``u`` to ``heads[arc]``.  ``outbound=True`` is the streaming
+    drain's mirror (``fin`` is the flow the arc itself carries, ``e`` the
+    negated imbalance): the residual's sign flips, ``res[arc] += d`` and
+    ``res[rev[arc]] -= d``, and the excess moves the same way.  Lanes
+    ``u`` (one per vertex slot, ``q_valid`` marking real ones) and arcs
+    index flat arrays, so one call serves an instance or a batch seen as
+    one graph.  A lane that does not cancel adds zero at a slot of its own
+    (the reference drops its scatter)."""
     nv, a = height.shape[0], res.shape[0]
     u_c = torch.clamp(u, max=nv - 1)
     arc_c = torch.clamp(argarc, 0, a - 1)
-    do = q_valid & (minh < height[u_c])  # strictly toward the source
+    do = q_valid & (minh < height[u_c])  # strictly toward the sinks
     d = torch.where(do, torch.minimum(e[u_c], fin[arc_c]), 0)
     lane = torch.arange(u.shape[0], dtype=_I32, device=u.device)
     idle = lane % a
+    dr = d if outbound else -d  # what the selected arc's residual gains
     res = res.index_add(0, torch.cat([torch.where(do, arc_c, idle),
                                       torch.where(do, rev[arc_c], idle)]),
-                        torch.cat([-d, d]))
+                        torch.cat([dr, -dr]))
     e = e.index_add(0, torch.cat([torch.where(do, u_c, lane),
                                   torch.where(do, heads[arc_c], lane)]),
                     torch.cat([-d, d]))
@@ -89,15 +94,19 @@ def _cancel_apply(heads, rev, res, e, fin, height, u, q_valid, minh, argarc):
 
 def _cancel_step(g: pr.DeviceGraph, meta, res0, state: pr.PRState, s: int,
                  t: int, minh_fn: Callable | None = None,
-                 scan: bool = False) -> pr.PRState:
+                 scan: bool = False, outbound: bool = False) -> pr.PRState:
     """One bulk-synchronous cancellation: every stranded vertex returns
     ``min(e, fin)`` units along its minimum-height inbound flow arc,
     provided that arc is strictly height-decreasing.  ``state.h`` holds
-    the flow heights (distance from s)."""
+    the flow heights (distance from s).  ``outbound=True`` is the
+    streaming drain's deficit step: ``state.e`` is the negated imbalance,
+    and each deficit vertex retires flow on its minimum-height *outbound*
+    flow arc (``fout = res0 - res``) toward the sink set the heights
+    measure (``_cancel_apply``)."""
     n = meta.n
     res, height, e = state
     strand = engine.fill_at(engine.fill_at(e > 0, s, False), t, False)
-    fin = inflow(g, res0, res)
+    fin = res0 - res if outbound else inflow(g, res0, res)
     # the phase-1 min-height machinery verbatim: res := inbound flow,
     # h := flow heights -> (min height of a flow-sending neighbour, arc)
     pseudo = pr.PRState(res=fin, h=height, e=e)
@@ -112,15 +121,16 @@ def _cancel_step(g: pr.DeviceGraph, meta, res0, state: pr.PRState, s: int,
         fn = pr._flat_frontier_minh if minh_fn is None else minh_fn
         minh, argarc = fn(g, meta, pseudo, u, q_valid)
     res, e = _cancel_apply(g.heads, g.rev, res, e, fin, height, u, q_valid,
-                          minh, argarc)
+                           minh, argarc, outbound)
     return pr.PRState(res=res, h=height, e=e)
 
 
 def _drain(heights_fn: Callable, cancel_fn: Callable, res, e,
            stranded_fn: Callable):
     """The outer [heights -> cancel to fixpoint] loop shared by the
-    single and the batched phase 2.  ``heights_fn(res)`` gives flow
-    heights, ``cancel_fn(res, height, e)`` one cancellation step,
+    single and the batched phase 2 and the streaming drain's deficit
+    half.  ``heights_fn(res, e)`` gives the pass's heights,
+    ``cancel_fn(res, height, e)`` one cancellation step,
     ``stranded_fn(e)`` the stranded excess (0-d, or ``(B,)`` for a
     batch, whose per-pass progress is then kept per row)."""
 
@@ -131,7 +141,7 @@ def _drain(heights_fn: Callable, cancel_fn: Callable, res, e,
     def outer_body(carry):
         res, e, _ = carry
         e_before = e
-        height = heights_fn(res)
+        height = heights_fn(res, e)
 
         def inner_body(c):
             res, e, _ = c
@@ -175,7 +185,7 @@ def phase2_impl(g: pr.DeviceGraph, meta, res0, res, e, s: int, t: int,
     def stranded(e):
         return torch.where(inner, e, 0).sum(dtype=_I32)
 
-    def heights(res):
+    def heights(res, e):
         return flow_heights_impl(g, meta, res0, res, s, minh_fn=minh_fn)[0]
 
     def cancel(res, height, e):
@@ -207,7 +217,7 @@ def _inner_rows(n: int, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def _batched_cancel_step(g: pr.DeviceGraph, meta, flat, res0, res, height,
                          e, s, t, minh_fn: Callable | None = None,
-                         scan: bool = False):
+                         scan: bool = False, outbound: bool = False):
     """Batch-level ``_cancel_step``: one bulk-synchronous cancellation for
     every instance at once, over the batch seen as one graph of ``B``
     disjoint parts (``flat``, ``batched._flat`` of the rows: row ``b``'s
@@ -215,7 +225,8 @@ def _batched_cancel_step(g: pr.DeviceGraph, meta, flat, res0, res, height,
     a kernel ``minh_fn`` the selection is ONE launch of the min search's
     AVQ form spanning the batch; otherwise one flat-frontier search (or,
     ``scan=True``, one thread-centric scan) over the flat graph — the
-    same choices either way."""
+    same choices either way.  ``outbound=True``: the streaming drain's
+    deficit step, as in :func:`_cancel_step`."""
     from repro_torch.core import batched
     from repro_torch.kernels import ref as kref
 
@@ -223,7 +234,7 @@ def _batched_cancel_step(g: pr.DeviceGraph, meta, flat, res0, res, height,
     A = res.shape[1]
     N, AF = flat.meta.n, flat.meta.num_arcs
     strand = (e > 0) & _inner_rows(n, s, t)
-    fin = batched_inflow(g, res0, res)
+    fin = res0 - res if outbound else batched_inflow(g, res0, res)
     fin_f, h_f = fin.view(-1), height.view(-1)
     heads_f = flat.g.heads
     if scan:
@@ -247,7 +258,7 @@ def _batched_cancel_step(g: pr.DeviceGraph, meta, flat, res0, res, height,
             # row-local arcs (A = none) -> flat (AF = none)
             argarc = torch.where(out[1] < A, out[1] + flat.aoff, AF).view(-1)
     res_f, e_f = _cancel_apply(heads_f, flat.g.rev, res.view(-1), e.view(-1),
-                               fin_f, h_f, u, q_valid, minh, argarc)
+                               fin_f, h_f, u, q_valid, minh, argarc, outbound)
     return res_f.view(bsz, A), e_f.view(bsz, n)
 
 
@@ -269,7 +280,7 @@ def batched_phase2_impl(g: pr.DeviceGraph, meta, res0, res, e, s, t,
     def stranded(e):
         return torch.where(inner, e, 0).sum(dim=1, dtype=_I32)
 
-    def heights(res):
+    def heights(res, e):
         return gr.batched_residual_distances_impl(
             g, meta, batched_inflow(g, res0, res), s, minh_fn=minh_fn)[0]
 

@@ -22,8 +22,8 @@ All return ``(Graph, s, t)`` (or ``BipartiteProblem``) with int capacities.
 A copy of the JAX package's ``repro.graphs.generators`` (the port imports
 nothing of ``repro``).  The per-vertex Python loops stay as they are: the
 same seed must draw the same random stream, so both packages build
-byte-identical graphs.  The streaming update traces come with the
-streaming slice.
+byte-identical graphs and the same streaming update traces, event for
+event.
 """
 from __future__ import annotations
 
@@ -193,3 +193,169 @@ def bipartite_random(n_left: int, n_right: int, avg_deg: float = 4.0,
     return BipartiteProblem(
         graph=Graph(n_left + n_right + 2, all_e, caps), s=s, t=t,
         n_left=n_left, n_right=n_right, lr_edges=lr)
+
+
+# ---------------------------------------------------------------------------
+# update traces for the streaming tier
+
+
+def _directed_caps(g: Graph) -> dict:
+    """Host mirror of the coalesced residual's directed capacities: both
+    directions of every unordered pair (self-loops dropped, parallel
+    edges summed) — the exact arc set ``build_residual`` materialises."""
+    caps: dict[tuple[int, int], int] = {}
+    for (u, v), c in zip(g.edges.tolist(), g.cap.tolist()):
+        if u == v:
+            continue
+        caps[(u, v)] = caps.get((u, v), 0) + int(c)
+        caps.setdefault((v, u), 0)
+    return caps
+
+
+def update_trace(g: Graph, s: int, t: int, n_batches: int = 20,
+                 batch_size: int = 4, p_insert: float = 0.15,
+                 p_delete: float = 0.15, locality: float = 0.0,
+                 adversarial: bool = False, max_cap: int = 50,
+                 seed: int = 0) -> list:
+    """A replayable stream of edit-event batches for ``(g, s, t)``.
+
+    Returns ``[batch, ...]`` where each batch is a list of
+    ``repro_torch.streaming`` events (``EdgeInsert`` / ``EdgeDelete``
+    / ``CapacityReweight``), guaranteed admissible when applied in order
+    (no self-loops, no deletes of missing arcs, vertices in range).
+
+    ``locality`` in [0, 1] biases consecutive events toward recently
+    touched vertices (1.0 = the whole trace hammers one neighbourhood —
+    the best case for warm starts; 0.0 = uniform).  ``adversarial=True``
+    instead alternates large re-weights on the source/sink frontier
+    arcs, repeatedly invalidating the routed flow — the worst case for
+    incremental re-solve and the honest baseline for the benchmark.
+    """
+    from repro_torch.streaming.events import (CapacityReweight,
+                                              EdgeDelete, EdgeInsert)
+
+    rng = _rng(seed)
+    caps = _directed_caps(g)
+    pairs = list(caps.keys())
+    recent: list[int] = []
+
+    def pick_pair():
+        if recent and locality > 0 and rng.random() < locality:
+            u = int(recent[int(rng.integers(0, len(recent)))])
+            cand = [p for p in pairs if p[0] == u or p[1] == u]
+            if cand:
+                return cand[int(rng.integers(0, len(cand)))]
+        return pairs[int(rng.integers(0, len(pairs)))]
+
+    def note(u, v):
+        recent.extend((u, v))
+        del recent[:-8]
+
+    if adversarial:
+        # the flow-carrying frontier: arcs leaving s and entering t.
+        # Zeroing them strands routed flow at depth (maximal reroute
+        # work); restoring them forces a full re-route back in.
+        frontier = [p for p in pairs
+                    if (p[0] == s or p[1] == t) and caps[p] > 0]
+        if not frontier:
+            frontier = [p for p in pairs if caps[p] > 0] or pairs
+        batches = []
+        for i in range(n_batches):
+            batch = []
+            for j in range(batch_size):
+                u, v = frontier[(i + j) % len(frontier)]
+                lo = 0 if (i + j) % 2 == 0 else max_cap
+                batch.append(CapacityReweight(u, v, lo))
+                caps[(u, v)] = lo
+            batches.append(batch)
+        return batches
+
+    batches = []
+    for _ in range(n_batches):
+        batch = []
+        # pairs inserted in THIS batch: further same-batch events on them
+        # are inadmissible (normalize_events rejects events on a pair
+        # that does not exist until the batch is applied)
+        fresh: set[frozenset] = set()
+        for _ in range(batch_size):
+            roll = rng.random()
+            if roll < p_insert:
+                # a genuinely new pair when one exists, else a
+                # parallel-edge insert (degrades to a capacity increase)
+                for _ in range(8):
+                    u, v = int(rng.integers(0, g.n)), int(rng.integers(0, g.n))
+                    if u != v and (u, v) not in caps:
+                        break
+                else:
+                    for _ in range(8):
+                        u, v = pick_pair()
+                        if frozenset((u, v)) not in fresh:
+                            break
+                    else:
+                        continue
+                c = int(rng.integers(1, max_cap + 1))
+                batch.append(EdgeInsert(u, v, c))
+                if (u, v) not in caps:  # genuinely new pair: track both arcs
+                    pairs.extend([(u, v), (v, u)])
+                    fresh.add(frozenset((u, v)))
+                caps[(u, v)] = caps.get((u, v), 0) + c
+                caps.setdefault((v, u), 0)
+            elif roll < p_insert + p_delete:
+                live = [p for p in pairs if caps.get(p, 0) > 0
+                        and frozenset(p) not in fresh]
+                if not live:
+                    continue
+                u, v = live[int(rng.integers(0, len(live)))]
+                batch.append(EdgeDelete(u, v))
+                caps[(u, v)] = 0
+            else:
+                for _ in range(8):
+                    u, v = pick_pair()
+                    if frozenset((u, v)) not in fresh:
+                        break
+                else:
+                    continue
+                c = int(rng.integers(0, max_cap + 1))
+                batch.append(CapacityReweight(u, v, c))
+                caps[(u, v)] = c
+            note(u, v)
+        if batch:
+            batches.append(batch)
+    return batches
+
+
+def apply_events_to_graph(g: Graph, batches) -> Graph:
+    """Fold event batches into a plain ``Graph`` — the cold-solve
+    reference a replayed trace is compared against.  Accepts a single
+    batch or a list of batches."""
+    from repro_torch.streaming.events import (CapacityReweight,
+                                              EdgeDelete, EdgeInsert)
+
+    caps = _directed_caps(g)
+    if batches and not isinstance(batches[0], (list, tuple)):
+        batches = [batches]
+    for batch in batches:
+        for ev in batch:
+            if isinstance(ev, EdgeInsert):
+                caps[(ev.u, ev.v)] = caps.get((ev.u, ev.v), 0) + int(ev.cap)
+                caps.setdefault((ev.v, ev.u), 0)
+            elif isinstance(ev, EdgeDelete):
+                if (ev.u, ev.v) not in caps:
+                    raise KeyError(f"delete of missing arc {ev.u}->{ev.v}")
+                caps[(ev.u, ev.v)] = 0
+            elif isinstance(ev, CapacityReweight):
+                if (ev.u, ev.v) not in caps:
+                    raise KeyError(f"re-weight of missing arc {ev.u}->{ev.v}")
+                caps[(ev.u, ev.v)] = int(ev.cap)
+            else:  # CapacityUpdate / (u, v, delta) tuples
+                u, v, d = (ev.u, ev.v, ev.delta) if hasattr(ev, "delta") \
+                    else ev
+                if (u, v) not in caps:
+                    raise KeyError(f"update of missing arc {u}->{v}")
+                caps[(u, v)] += int(d)
+                if caps[(u, v)] < 0:
+                    raise ValueError(f"cap({u}->{v}) driven below zero")
+    items = sorted(caps.items())
+    edges = np.array([p for p, _ in items], np.int64).reshape(-1, 2)
+    cap = np.array([c for _, c in items], np.int64)
+    return Graph(g.n, edges, cap)

@@ -729,3 +729,99 @@ def test_tc_on_the_card_matches_vc(cuda, backend):
         for f in ("res", "h", "e"):
             assert a.state.res.device.type == "cuda"
             assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+def _drain_items(seeds):
+    """Corrected flows of card solves of washington graphs, each with
+    decreases that take two flow-carrying source arcs below their flow
+    and an increase: ``[(residual, res, e, s, t, ups), ...]``."""
+    items = []
+    for i, seed in enumerate(seeds):
+        p = MaxflowProblem(*washington_rlg(12 + 5 * i, 20, seed=seed))
+        sol = Solver(mode="vc_kernel_bsearch").solve(p)
+        res, e = sol.warm_start.arrays()
+        r = p.residual("bcsr")
+        flow = r.res0 - res
+        out = np.arange(r.indptr[p.s], r.indptr[p.s + 1])
+        hot = out[flow[out] > 0][:2]
+        ups = [(p.s, int(r.heads[a]), -int(r.res0[a])) for a in hot]
+        ups.append((int(r.tails[-1]), int(r.heads[-1]), 3))
+        items.append((r, res, e, p.s, p.t, ups))
+    return items
+
+
+def _same_drain(a, b):
+    for f in ("value", "budget", "overflow", "rerouted", "ok"):
+        assert getattr(a, f) == getattr(b, f), f
+    np.testing.assert_array_equal(a.res, b.res)
+    np.testing.assert_array_equal(a.e, b.e)
+
+
+def test_drain_kernel_matches_plain(cuda):
+    """The streaming drain on the min-search kernel (dense sweeps toward
+    the sink set, AVQ deficit and excess cancellations) == the plain
+    drain on the card == the drain on the CPU, bit for bit; only the
+    kernel run launches the gather entry, in both forms."""
+    from repro_torch.streaming import reroute
+
+    for item in _drain_items((3, 4)):
+        before = (tile_min_neighbor_gather.launches,
+                  tile_min_neighbor_gather.dense_launches)
+        kern = reroute.apply_signed(*item, use_kernel=True)
+        mid = (tile_min_neighbor_gather.launches,
+               tile_min_neighbor_gather.dense_launches)
+        plain = reroute.apply_signed(*item)
+        assert (tile_min_neighbor_gather.launches,
+                tile_min_neighbor_gather.dense_launches) == mid
+        assert mid[1] > before[1] and mid[0] - mid[1] > before[0] - before[1]
+        assert kern.rerouted and kern.ok
+        _same_drain(kern, plain)
+        _same_drain(kern, reroute.apply_signed(*item, device="cpu"))
+
+
+def test_pooled_drain_kernel_matches_plain(cuda):
+    """The pooled drain of rows of different sizes, on the kernel (each
+    sweep step and each selection one launch spanning the pool) == the
+    plain pooled drain == each row's own drain on the card, bit for
+    bit."""
+    from repro_torch.obs import REGISTRY
+    from repro_torch.streaming import reroute
+
+    items = _drain_items((5, 6, 7))
+    disp = REGISTRY.counter("stream.reroute.batched_dispatches")
+    before = disp.value
+    kern = reroute.apply_signed_batched(items, use_kernel=True)
+    assert disp.value == before + 1
+    plain = reroute.apply_signed_batched(items)
+    for k, p, item in zip(kern, plain, items):
+        assert k.rerouted
+        _same_drain(k, p)
+        _same_drain(k, reroute.apply_signed(*item, use_kernel=True))
+
+
+def test_stream_on_the_card_matches_cpu(cuda):
+    """A stream opened on the card in ``vc_kernel_bsearch`` (drains and
+    phase 2 on the kernel) == the same stream on the CPU in ``vc``: the
+    value and the corrected arrays at every version, a structural insert
+    included."""
+    from repro_torch.graphs.generators import apply_events_to_graph
+    from repro_torch.graphs.generators import update_trace
+
+    g, s, t = washington_rlg(16, 16, seed=7)
+    batches = update_trace(g, s, t, n_batches=3, batch_size=4,
+                           adversarial=True, seed=7)
+    batches += update_trace(g, s, t, n_batches=1, batch_size=4,
+                            p_insert=0.5, p_delete=0.0, seed=7)
+    card = Solver(mode="vc_kernel_bsearch").open_stream(
+        MaxflowProblem(g, s, t))
+    cpu = Solver(device="cpu").open_stream(MaxflowProblem(g, s, t))
+    for batch in batches:
+        got, want = card.query(card.apply(batch)), cpu.query(cpu.apply(batch))
+        assert got.value == want.value
+        assert got.state.res.device.type == "cuda"
+        for a, b in zip(got.warm_start.arrays(), want.warm_start.arrays()):
+            np.testing.assert_array_equal(a, b)
+        assert got.min_cut().value == got.value
+    assert card.stats()["structural_rebuilds"] == 1
+    assert got.value == Solver(mode="vc_kernel_bsearch").solve(
+        MaxflowProblem(apply_events_to_graph(g, batches), s, t)).value

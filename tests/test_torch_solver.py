@@ -2,8 +2,8 @@
 ported mode on CPU, ``Solver(mode=m, device="cpu").solve(p)`` equals the
 JAX ``vc`` solve in value, cycles, rounds, global relabels, sweeps and the
 final ``res/h/e``, and the value equals Dinic.  Also: exact
-``max_cycles`` budgets, the default device, what is not ported yet, and
-the CLI.  Tolerance: exact equality."""
+``max_cycles`` budgets, the default device, what is not ported yet (and
+what the streaming slice ported), and the CLI.  Tolerance: exact equality."""
 import numpy as np
 import pytest
 import torch
@@ -109,24 +109,37 @@ def test_default_device_is_the_card(monkeypatch):
 
 def test_not_ported_yet_raises():
     """What stays unported raises, naming its ROADMAP entry:
-    ``distributed``, ``open_stream`` and a capacity decrease below the
-    routed flow (its device drain is the streaming item), on single and
-    batched solutions."""
-    _, gt, s, t = _instance("genrmf")
+    ``distributed``.  What the streaming slice ported runs, single and
+    batched, and agrees with JAX: ``open_stream``, and a capacity
+    decrease below the routed flow (drained on the device, then
+    re-solved warm)."""
+    from repro.api import CapacityUpdate as JUpdate
+    from repro.api import MaxflowProblem as JMaxflowProblem
+    from repro.api import Solver as JSolver
+
+    gj, gt, s, t = _instance("genrmf")
     p = MaxflowProblem(gt, s, t)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Solver(device="cpu", backend="distributed").solve(p)
     for backend in ("single", "batched"):
         solver = Solver(device="cpu", backend=backend)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*Streaming"):
-            solver.open_stream(p)
+        jsolver = JSolver(backend=backend)
+        stream = solver.open_stream(p)
+        jstream = jsolver.open_stream(JMaxflowProblem(gj, s, t))
+        assert stream.query().value == jstream.query().value
         sol = solver.solve(p)
+        jsol = jsolver.solve(JMaxflowProblem(gj, s, t))
         res, _ = sol.warm_start.arrays()
         r = sol.warm_start.residual
         a = int(np.argmax(r.res0 - res))  # the arc carrying most flow
-        with pytest.raises(NotImplementedError, match="ROADMAP.*Streaming"):
-            solver.resolve(sol.warm_start,
-                           [(int(r.tails[a]), int(r.heads[a]), -int(r.res0[a]))])
+        up = (int(r.tails[a]), int(r.heads[a]), -int(r.res0[a]))
+        got = solver.resolve(sol.warm_start, [up])
+        want = jsolver.resolve(jsol.warm_start, [JUpdate(*up)])
+        assert got.stats.rerouted and got.value == want.value
+        assert got.stats.warm and got.value <= sol.value
+        v = stream.apply([up])
+        assert stream.query(v).value == jstream.query(
+            jstream.apply([up])).value == want.value
     with pytest.raises(ValueError, match="unknown mode"):
         SolverOptions(mode="fast", device="cpu")
 

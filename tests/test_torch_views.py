@@ -5,8 +5,8 @@ value), ``extract_matching``, ``Solution.flows()``/``min_cut()``/
 (``validate``, ``arrays``, ``apply``) and ``Solver.resolve`` with
 capacity increases against JAX ``Solver.resolve`` in mode ``vc`` (value,
 cycles and the corrected residual), decreases that stay above the routed
-flow (no solve) and one below it (which raises: its device drain is not
-ported), and the warm-start host helpers.  Tolerance: exact equality."""
+flow (no solve) and one below it (drained on the device, then re-solved
+warm), and the warm-start host helpers.  Tolerance: exact equality."""
 import dataclasses
 
 import numpy as np
@@ -243,8 +243,9 @@ def test_resolve_increases_match_jax(seed, mode):
 def test_resolve_decreases_and_refusals():
     """A decrease that stays above the routed flow is answered with no
     solve (``stream.noop_resolves`` + 1), as JAX answers it; one below
-    the routed flow raises naming the streaming queue item; a missing
-    arc, a capacity below zero and an empty set raise as in JAX."""
+    the routed flow is drained on the device and re-solved warm, equal to
+    JAX's in value and arrays; a missing arc, a capacity below zero and
+    an empty set raise as in JAX."""
     g = tgen.Graph(4, np.array([[0, 1], [1, 3], [0, 2], [2, 3]], np.int64),
                    np.array([5, 9, 4, 4], np.int64))
     jg = JGraph(g.n, g.edges, g.cap)
@@ -262,8 +263,13 @@ def test_resolve_decreases_and_refusals():
                                   jdec.warm_start.arrays()[0])
     assert torch.equal(dec.state.res, torch.from_numpy(
         dec.warm_start.arrays()[0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Streaming"):
-        solver.resolve(sol.warm_start, [CapacityUpdate(0, 1, -2)])
+    drained = solver.resolve(sol.warm_start, [CapacityUpdate(0, 1, -2)])
+    jdrained = JSolver().resolve(jsol.warm_start, [JUpdate(0, 1, -2)])
+    assert drained.value == jdrained.value == 7
+    assert drained.stats.warm and drained.stats.rerouted
+    for x, y in zip(drained.warm_start.arrays(),
+                    jdrained.warm_start.arrays()):
+        np.testing.assert_array_equal(x, y)
     with pytest.raises(ValueError, match="negative"):
         solver.resolve(sol.warm_start, [CapacityUpdate(0, 1, -9)])
     with pytest.raises(KeyError):
