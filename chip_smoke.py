@@ -56,7 +56,37 @@ just before it and read just after:
   the main graph, then 3 adversarial batches and one mixed batch with a
   new arc pair (a structural rebuild around the routed flow); at every
   version the flow is feasible and its min cut has the version's value,
-  and the last value equals a cold solve of the folded graph.
+  and the last value equals a cold solve of the folded graph;
+* ``serve_path`` — ``MaxflowService(ServiceConfig(mode="vc_fused",
+  max_batch=8))``, the batched path's graphs and 8 more as one serving
+  bucket: 16 fresh requests (2 more coalesced) in 2 flushes, 4 cached
+  repeats that launch nothing, and 4 resubmits (+50 on 16 min-cut arcs
+  of two, 2 flow-carrying source arcs zeroed on two) whose first
+  admission corrects the first flush in one pooled phase 2 (each step
+  one launch for the group), riding one flush; every value against
+  scipy's Dinic; on the card, bit for bit, the cold rows against the
+  plain ``batched.batched_solve_impl`` (``vc``) on the bucket's shapes,
+  the correction against the plain ``batched_phase2`` and the
+  decreases' drains (on the gather entry) against the plain drain;
+* ``serve_streams`` — 4 streams on the same service opened on cached
+  graphs, one pooled wave of adversarial batches (drained on the gather
+  entry) and a mixed batch with a new arc pair on 2, each drain against
+  the plain drain, each version checked as in ``stream_path`` and the
+  last against scipy's Dinic on the folded graph;
+* ``serve_policy`` — ``mode="auto"`` on 20 ``washington_rlg(128, 128)``:
+  4 trial flushes and one pinned, each kernel mode's flush launching its
+  kernels (its rows bit for bit the plain ``batched_solve_impl``'s) and
+  the ``vc`` flush none;
+* ``serve_launcher`` — ``python -m repro_torch.launch.serve_maxflow``'s
+  ``main`` in ``auto`` with ``--verify`` (its ``--smoke`` gates on the
+  snapshot and trace it wrote, its telemetry overhead printed), and as
+  the chaos run (flood, bounded queues, deadlines, injected faults):
+  every served value against scipy's Dinic, every error typed and every
+  injected dispatch fault counted.
+
+Outside the chaos run no serving phase may take a rung of the service's
+degradation ladder (retries, demotions, host fallbacks, dispatch errors):
+a kernel that failed to build or launch would hide there.
 
 The fused discharge is also held against its plain version at the
 batched path's own shapes (after the first global relabel and mid-solve)
@@ -94,6 +124,7 @@ It imports neither ``jax`` nor the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import multiprocessing
 import pathlib
@@ -152,6 +183,27 @@ WARM_DELTA = 50
 #: source arcs and raises sink arcs, alternately), events a batch
 STREAM_ADVERSARIAL = 3
 STREAM_EVENTS = 4
+#: the serving phases: fresh instances of ``serve_path`` (the batched
+#: path's 8 graphs and the next 8 seeds), of them the first ones submitted
+#: twice before the flush, the cached repeats, the min-cut arcs raised by
+#: ``WARM_DELTA`` on two resubmits and the source arcs zeroed on two more;
+#: the streams opened on the second flush's graphs, the first ones of
+#: which get a mixed second batch with a new arc pair
+SERVE_FRESH = 2 * BATCH
+SERVE_COALESCED = 2
+SERVE_REPEATS = (2, 5, 9, 12)
+SERVE_CUT_ARCS = 16
+SERVE_ZEROED = 2
+SERVE_STREAMS = 4
+SERVE_MIXED = 2
+#: ``serve_policy``'s instances (rows, cols) and count, full run and
+#: ``--quick``, and its ``max_batch``: 5 flushes of one bucket
+POLICY_SIZE = {False: (128, 128), True: (16, 16)}
+POLICY_INSTANCES = 20
+POLICY_BATCH = 4
+#: ``serve_launcher``'s requests: the ``auto`` run and the chaos run
+LAUNCHER_REQUESTS = {False: 48, True: 16}
+CHAOS_REQUESTS = {False: 32, True: 16}
 #: the path whose launches each kernel's row reports (the rest: "main")
 ROW_PATH = {"tile_min_neighbor_gather[avq]": "vc_kernel",
             "fused_discharge_batched": "fused"}
@@ -1031,6 +1083,712 @@ def drain_loops(torch, ctx, minh_fn) -> dict:
     return loops
 
 
+# ---------------------------------------------------------------------------
+# serving: MaxflowService and serve_maxflow on the card
+# ---------------------------------------------------------------------------
+
+#: the robustness counters that must stay 0 outside the chaos run
+ROBUST_ZERO = ("retries", "transient_demotions", "sticky_demotions",
+               "host_fallbacks", "dispatch_failed", "quarantined",
+               "budget_exhausted", "rejected", "shed", "expired_at_admission")
+
+
+def serve_clean(stats, metrics, what):
+    """No rung of the degradation ladder was taken and no dispatch raised:
+    a kernel that failed to build or launch would hide there."""
+    rb = stats["robustness"]
+    bad = {k: rb[k] for k in ROBUST_ZERO if rb[k]}
+    errs = {k: v for k, v in metrics["counters"].items()
+            if k.startswith("serve.dispatch_errors") and v}
+    require(not bad and not errs, f"{what}: the ladder was taken: {bad} "
+            f"{errs}")
+
+
+def flush_recorder(torch, svc):
+    """Wrap ``svc``'s flushes to record each one's live rows, wall, kernel
+    launches and the modes of its ``serve.solve`` spans (the tracer is on
+    while a serving phase runs)."""
+    from repro_torch.obs import TRACER
+
+    flushes = []
+    flush = svc._flush_bucket
+
+    def recorded(key):
+        before = launch_counts()
+        n0 = len(TRACER)
+        t0 = time.perf_counter()
+        live = flush(key)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = launch_counts()
+        evs = TRACER.to_dict()["traceEvents"][n0:]
+        flushes.append({
+            "live": live, "wall_s": wall,
+            "modes": [e["args"]["mode"] for e in evs
+                      if e["name"] == "serve.solve" and e["ph"] == "B"],
+            "launches": {k: after[k] - before[k] for k in KERNELS}})
+        return live
+
+    svc._flush_bucket = recorded
+    return flushes
+
+
+def span_walls(name):
+    """Wall seconds of each ``name`` span the tracer holds."""
+    from repro_torch.obs import TRACER
+
+    out, open_ = [], []
+    for ev in TRACER.to_dict()["traceEvents"]:
+        if ev["name"] != name:
+            continue
+        if ev["ph"] == "B":
+            open_.append(ev["ts"])
+        elif ev["ph"] == "E":
+            out.append(1e-6 * (ev["ts"] - open_.pop()))
+    return out
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """For the block, ``module.name`` logs each call as ``(args, kwargs,
+    result)``; yields the log."""
+    fn = getattr(module, name)
+    log = []
+
+    def logged(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        log.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, logged)
+    try:
+        yield log
+    finally:
+        setattr(module, name, fn)
+
+
+def drains_vs_plain(log, what):
+    """Each ``reroute.drain_prepared`` call of ``log`` ran on the kernel
+    route, and each of its results equals the plain drain of the same
+    preparations on the same device, bit for bit.  Returns the number of
+    preparations that overflowed (those a device drain ran for)."""
+    import numpy as np
+
+    from repro_torch.streaming import reroute
+
+    drained = 0
+    for args, kwargs, out in log:
+        (preps,) = args
+        require(kwargs["use_kernel"], f"{what}: a served drain ran off the "
+                "kernel route")
+        plain = reroute.drain_prepared(preps, use_kernel=False,
+                                       device=kwargs["device"])
+        for a, b in zip(out, plain):
+            require(np.array_equal(a.res, b.res) and np.array_equal(a.e, b.e)
+                    and (a.value, a.budget, a.overflow, a.rerouted, a.ok)
+                    == (b.value, b.budget, b.overflow, b.rerouted, b.ok),
+                    f"{what}: a served drain != the plain drain on the card")
+        drained += sum(p.overflow > 0 for p in preps)
+    return drained
+
+
+@contextlib.contextmanager
+def plain_hooks():
+    """For the block, the ``vc_fused`` driver runs each kernel's plain
+    version: the fused discharge's in-place entry
+    (``fused_discharge_batched_plain_``) and the global relabel's min
+    search (``vc``'s plain scan)."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import discharge
+
+    resolve, fused = engine.resolve_minh_fn, discharge.fused_discharge_batched_
+    engine.resolve_minh_fn = lambda mode: resolve("vc")
+    discharge.fused_discharge_batched_ = (
+        discharge.fused_discharge_batched_plain_)
+    try:
+        yield
+    finally:
+        engine.resolve_minh_fn = resolve
+        discharge.fused_discharge_batched_ = fused
+
+
+def rows_vs_plain(torch, handles, results, key, mode, what):
+    """Served rows, each the handle of one live request of one flush in
+    the kernel mode ``mode`` (before any correction), against
+    ``batched.batched_solve_impl`` of the same instances on the bucket's
+    own shapes and the service's cycle chunk with every kernel on its
+    plain version: ``vc_fused`` under :func:`plain_hooks`, and for
+    ``vc_kernel``/``vc_kernel_bsearch`` the ``vc`` mode (the same cycle
+    with the min search, and its reverse arcs, by the plain scan).
+    ``res``/``e``, cycles and rounds bit for bit; the plain run launches
+    nothing.  Returns the number of rows held."""
+    import numpy as np
+
+    from repro_torch.core import batched
+
+    before = launch_counts()
+    with plain_hooks() if mode == "vc_fused" else contextlib.nullcontext():
+        ref = batched.batched_solve_impl(
+            [(h.residual, h.s, h.t) for h in handles],
+            mode="vc_fused" if mode == "vc_fused" else "vc",
+            n_pad=key.n_pad, A_pad=key.arc_pad, deg_max=key.deg_max,
+            telemetry=True)
+    require(launch_counts() == before, f"{what}: the plain run launched a "
+            "kernel")
+    rres, re_ = ref.state.res.cpu().numpy(), ref.state.e.cpu().numpy()
+    for j, (h, r) in enumerate(zip(handles, results)):
+        require(not h.corrected and np.array_equal(
+            h._res, rres[j, :h.residual.num_arcs])
+                and np.array_equal(h._e, re_[j, :h.residual.n])
+                and r.cycles == ref.cycles[j] and r.rounds == ref.rounds[j],
+                f"{what}: served row {j} != the plain batched_solve_impl")
+    return len(handles)
+
+
+def sink_side(r, res, t):
+    """Vertices that reach ``t`` through arcs with residual: for a maximum
+    preflow, the sink side of a minimum cut (host BFS)."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import breadth_first_order
+
+    live = res > 0
+    rev_graph = csr_matrix((np.ones(int(live.sum()), np.int8),
+                            (r.heads[live], r.tails[live])),
+                           shape=(r.n, r.n))
+    side = np.zeros(r.n, bool)
+    side[breadth_first_order(rev_graph, t, return_predecessors=False)] = True
+    return side
+
+
+def handle_solution(handle, value):
+    """A ``Solution`` view of a served handle, for its flows and cut."""
+    from repro_torch.api.solution import Solution, SolveStats
+
+    return Solution(None, value, SolveStats(), handle, None)
+
+
+def serve_path(torch, graphs, oracles, pool, drain_log):
+    """Phase ``serve_path``: ``MaxflowService(mode="vc_fused",
+    max_batch=8)`` on the card, one bucket of ``washington_rlg`` graphs:
+    16 fresh instances (2 coalesced repeats) in 2 flushes, 4 cached
+    repeats, 4 resubmits (16 min-cut arcs +50 on two, 2 flow-carrying
+    source arcs zeroed on two) whose first admission corrects the first
+    flush in one pooled phase 2, then one flush.  Every value against
+    scipy's Dinic; on the card, bit for bit: the cold rows against the
+    plain ``batched_solve_impl`` (:func:`rows_vs_plain`), the correction
+    against the plain ``batched_phase2`` and the decreases' drains
+    (``drain_log``, on the gather entry) against the plain drain.
+    Returns the service, its context and the launches."""
+    import numpy as np
+
+    from repro_torch.core import batched
+    from repro_torch.kernels import ops as kops
+    from repro_torch.obs import REGISTRY, TRACER
+    from repro_torch.serving import MaxflowService, ServiceConfig
+
+    REGISTRY.reset()
+    TRACER.clear()
+    TRACER.enable()
+    svc = MaxflowService(ServiceConfig(mode="vc_fused", max_batch=BATCH))
+    flushes = flush_recorder(torch, svc)
+    paths = {}
+
+    def cold():
+        futs = [svc.submit(*x) for x in graphs]
+        futs += [svc.submit(*graphs[i]) for i in range(SERVE_COALESCED)]
+        require(svc.n_coalesced == SERVE_COALESCED
+                and svc.pending == len(graphs), "the repeats did not "
+                "coalesce onto the queued solves")
+        svc.poll()
+        return futs
+
+    futs, wall_cold, paths["serve_cold"] = driven(torch, cold, FUSED_KERNELS)
+    cold_res = [f.result() for f in futs]
+    require(len(flushes) == 2 and [f["live"] for f in flushes] == [BATCH] * 2
+            and all(r.batch_size == BATCH for r in cold_res),
+            f"the cold requests did not ride 2 full flushes: {flushes}")
+    want = [o.get()[0] for o in oracles]
+    got = [r.maxflow for r in cold_res[:len(graphs)]]
+    require(got == want, f"served values {got} != scipy Dinic {want}")
+    require([r.maxflow for r in cold_res[len(graphs):]]
+            == want[:SERVE_COALESCED], "a coalesced request differs")
+    (key,) = svc._buckets
+    handles = [svc.results.peek(r.graph_id).handle for r in cold_res[
+        :len(graphs)]]
+    pre = [(h._res.copy(), h._e.copy()) for h in handles]
+    # the cold rows bit for bit against the plain batched core on the
+    # bucket's own shapes (its first global relabel and chunking are the
+    # service's)
+    t0 = time.perf_counter()
+    same = sum(rows_vs_plain(torch, handles[i:i + BATCH],
+                             cold_res[i:i + BATCH], key, "vc_fused",
+                             "serve_path")
+               for i in (0, BATCH))
+    plain_wall = time.perf_counter() - t0
+
+    reps, wall_rep, paths["serve_repeats"] = driven(torch, lambda: [
+        svc.submit(*graphs[i]).result() for i in SERVE_REPEATS])
+    require(all(r.cached for r in reps) and not any(
+        paths["serve_repeats"].values()), "a repeat was not a cache hit")
+
+    # two resubmits raise 16 arcs of a min cut by +50 each
+    rng = np.random.default_rng(SEED)
+    ups = {}
+    for i in (0, 1):
+        h = handles[i]
+        r = h.residual
+        side = sink_side(r, pre[i][0], h.t)
+        cut = np.nonzero(~side[r.tails] & side[r.heads] & (r.res0 > 0))[0]
+        pick = rng.choice(cut, size=SERVE_CUT_ARCS, replace=False)
+        ups[i] = [(int(r.tails[a]), int(r.heads[a]), WARM_DELTA)
+                  for a in pick]
+    calls = {"dense": 0, "avq": 0, "rows": set()}
+    hook = kops.min_neighbor_minh_fn
+
+    def counting_hook():
+        fn = hook()
+
+        def counted(g, meta, state, avq, q_valid):
+            calls["dense" if avq is None else "avq"] += 1
+            calls["rows"].add(tuple(state.res.shape[:-1]))
+            return fn(g, meta, state, avq, q_valid)
+        return counted
+
+    corr = REGISTRY.counter("serve.phase2_corrections")
+    kops.min_neighbor_minh_fn = counting_hook
+    try:
+        resub, wall_inc, paths["serve_correction"] = driven(
+            torch, lambda: [svc.resubmit(cold_res[i].graph_id, ups[i])
+                            for i in (0, 1)], VC_KERNEL_KERNELS)
+    finally:
+        kops.min_neighbor_minh_fn = hook
+    p2_spans = span_walls("serve.phase2")
+    first = handles[:BATCH]
+    require(corr.value == BATCH and len(p2_spans) == 1
+            and all(h.corrected for h in first)
+            and not any(h.corrected for h in handles[BATCH:]),
+            f"the first resubmit did not correct the first flush in one "
+            f"pooled dispatch: {corr.value} corrections, {p2_spans}")
+    lc = paths["serve_correction"]
+    require(calls["rows"] == {(BATCH,)}
+            and lc["tile_min_neighbor_gather[dense]"] == calls["dense"]
+            and lc["tile_min_neighbor_gather[avq]"] == calls["avq"],
+            f"a pooled correction step was not one launch for the group: "
+            f"{calls}, {lc}")
+    # two resubmits zero 2 flow-carrying source arcs each (corrected flow):
+    # decreases below the routed flow, drained on the card
+    for i in (2, 3):
+        h = handles[i]
+        res, _ = h.arrays()
+        r = h.residual
+        seg = np.arange(r.indptr[h.s], r.indptr[h.s + 1])
+        carrying = seg[(r.res0[seg] - res[seg]) > 0]
+        pick = rng.choice(carrying, size=SERVE_ZEROED, replace=False)
+        ups[i] = [(int(r.tails[a]), int(r.heads[a]), -int(r.res0[a]))
+                  for a in pick]
+    # scipy's Dinic on the edited graphs (the updates as extra parallel
+    # edges, summed), meanwhile
+    want_r = []
+    for i in range(4):
+        g, s, t = graphs[i]
+        extra = np.array([(u, v) for u, v, _ in ups[i]], np.int64)
+        want_r.append(pool.apply_async(scipy_maxflow, (
+            g.n, np.concatenate([g.edges, extra]),
+            np.concatenate([g.cap, [d for _, _, d in ups[i]]]), s, t)))
+    over = REGISTRY.counter("stream.reroute.overflow_units")
+    n_log = len(drain_log)
+    resub2, wall_dec, paths["serve_drain"] = driven(
+        torch, lambda: [svc.resubmit(cold_res[i].graph_id, ups[i])
+                        for i in (2, 3)], VC_KERNEL_KERNELS)
+    dec_drains = drain_log[n_log:]
+    require(over.value > 0, "the zeroed source arcs overflowed nothing")
+    resub += resub2
+    n_before = len(flushes)
+    _, wall_flush, paths["serve_resubmits"] = driven(torch, svc.flush,
+                                                     FUSED_KERNELS)
+    res_res = [f.result() for f in resub]
+    require(len(flushes) == n_before + 1
+            and flushes[-1]["live"] == len(resub)
+            and all(r.warm and r.batch_size == len(resub) for r in res_res),
+            "the 4 resubmits did not ride one warm flush")
+    # served handles drain on the gather entry (the service's kernel
+    # route), each drain bit for bit the plain drain of its preparation
+    drained = drains_vs_plain(dec_drains, "serve_path")
+    require(drained == 2, f"the zeroed source arcs of the 2 resubmits "
+            f"overflowed {drained} drains")
+    # the pooled correction against the plain batched phase 2 on the card
+    bg, meta, res0, _ = batched.pack_instances(
+        [(h.residual, h.s, h.t) for h in first])
+    state = batched.pack_states(
+        [(p[0], np.zeros(h.residual.n, np.int32), p[1])
+         for h, p in zip(first, pre)], meta.n, meta.num_arcs)
+    plain, left = batched.batched_phase2(bg, meta, res0, state, scan=True)
+    batched.check_phase2_leftover(left)
+    pres, pe = plain.res.cpu().numpy(), plain.e.cpu().numpy()
+    inner_ok = 0
+    for j, (h, r) in enumerate(zip(first, cold_res)):
+        res, e = h.arrays()
+        hr = h.residual
+        require(np.array_equal(res, pres[j, :hr.num_arcs])
+                and np.array_equal(e, pe[j, :hr.n]),
+                f"pooled correction row {j} != the plain batched phase 2")
+        h.validate()
+        div = flow_divergence(hr, handle_solution(h, r.maxflow).flows())
+        inner = np.ones(hr.n, bool)
+        inner[[h.s, h.t]] = False
+        require(div[h.t] == r.maxflow and div[h.s] == -r.maxflow
+                and not div[inner].any(), f"row {j}'s flow is not conserved")
+        inner_ok += 1
+    want_r = [o.get()[0] for o in want_r]
+    require([r.maxflow for r in res_res] == want_r,
+            f"resubmit values {[r.maxflow for r in res_res]} != scipy "
+            f"Dinic {want_r}")
+    st = svc.stats()
+    serve_clean(st, REGISTRY.snapshot(), "serve_path")
+    require(st["executables"]["compiles"] == 1 and st["buckets"] == 1,
+            f"more than one signature or bucket: {st['executables']}")
+    lat = np.array([f.latency_s for f in futs])
+    lat_r = np.array([f.latency_s for f in resub])
+    emit({"phase": "serve_path", "mode": "vc_fused", "bucket": key.label,
+          "requests": len(futs) + len(reps) + len(resub),
+          "coalesced": st["coalesced"], "cold_wall_s": wall_cold,
+          "flushes": flushes, "rows_equal_plain": same,
+          "plain_rows_wall_s": plain_wall,
+          "repeat_wall_s": wall_rep, "repeat_launches": paths[
+              "serve_repeats"],
+          "resubmit_values": [r.maxflow for r in res_res],
+          "resubmit_cycles": [r.cycles for r in res_res],
+          "resubmit_phase2_s": [r.phase2_s for r in res_res],
+          "increase_admission_wall_s": wall_inc,
+          "correction_launches": lc, "correction_wall_s": p2_spans[0],
+          "correction_shape": f"n{meta.n}a{meta.num_arcs}d{meta.deg_max}",
+          "corrected_rows_equal_plain": inner_ok,
+          "decrease_admission_wall_s": wall_dec,
+          "decrease_launches": paths["serve_drain"],
+          "drains_equal_plain": drained,
+          "resubmit_flush_wall_s": wall_flush,
+          "latency_p50_s": float(np.percentile(lat, 50)),
+          "latency_p99_s": float(np.percentile(lat, 99)),
+          "resubmit_latency_p50_s": float(np.percentile(lat_r, 50)),
+          "resubmit_latency_p99_s": float(np.percentile(lat_r, 99)),
+          "phase2_s": st["phase2_time_s"], "sweep_s": st["sweep_time_s"],
+          "bucket_counters": st["bucket_counters"],
+          "executables": st["executables"]["compiles"]})
+    return svc, {"graphs": graphs, "cold": cold_res, "flushes": flushes}, \
+        paths
+
+
+def serve_streams(torch, svc, sctx, pool, drain_log):
+    """Phase ``serve_streams``: on the same service, 4 streams opened on
+    cached graphs of the second flush (no solve), one pooled wave of
+    adversarial batches (its drain on the gather entry), then a mixed
+    batch with a new arc pair on 2 of them; each wave's pooled drain bit
+    for bit the plain drain on the card (``drain_log``), every version
+    feasible with a min cut of its value (:func:`check_version`), the
+    last against scipy's Dinic on the folded graph."""
+    import numpy as np
+
+    from repro_torch.graphs.generators import (apply_events_to_graph,
+                                               update_trace)
+    from repro_torch.obs import REGISTRY, TRACER
+    from repro_torch.streaming import EdgeInsert
+
+    graphs = sctx["graphs"][BATCH:BATCH + SERVE_STREAMS]
+    flushes = sctx["flushes"]
+    paths = {}
+    REGISTRY.reset()
+    solved = svc.n_solved
+    sids, wall_open, paths["serve_open"] = driven(
+        torch, lambda: [svc.open_stream(*x) for x in graphs])
+    require(not any(paths["serve_open"].values())
+            and svc.n_solved == solved,
+            "opening a stream on a cached graph solved it")
+    adv = [adversarial_deltas(svc._stream(sid).chain.get(0).handle.residual,
+                              *x)[0] for sid, x in zip(sids, graphs)]
+    rng = np.random.default_rng(SEED)
+    mixed = []
+    for g, s, t in graphs[:SERVE_MIXED]:
+        pairs = set(map(tuple, g.edges.tolist()))
+        while True:  # one new arc pair: neither direction is in the graph
+            u, v = (int(x) for x in rng.integers(0, g.n, 2))
+            if u != v and (u, v) not in pairs and (v, u) not in pairs:
+                break
+        mixed.append(update_trace(
+            g, s, t, n_batches=1, batch_size=STREAM_EVENTS - 1,
+            p_insert=0.0, p_delete=0.0, seed=SEED)[0]
+            + [EdgeInsert(u, v, WARM_DELTA)])
+    waves = [list(zip(sids, adv)), list(zip(sids[:SERVE_MIXED], mixed))]
+    corr = REGISTRY.counter("serve.phase2_corrections")
+    disp = REGISTRY.counter("stream.reroute.batched_dispatches")
+    rows = []
+    for w, items in enumerate(waves):
+        c0, d0, n0, l0 = corr.value, disp.value, len(flushes), len(drain_log)
+        TRACER.clear()
+        futs, wall_apply, launches_apply = driven(
+            torch, lambda items=items: svc.stream_apply_many(items),
+            () if w else VC_KERNEL_KERNELS)
+        spans = len(span_walls("serve.phase2"))
+        n_corr, n_drain = corr.value - c0, disp.value - d0
+        require(spans <= 1 and n_corr <= BATCH and n_drain <= 1,
+                f"wave {w}: more than one pooled correction or drain: "
+                f"{spans}, {n_drain}")
+        drained = drains_vs_plain(drain_log[l0:], f"serve_streams wave {w}")
+        require(drained > 0 or w, "the adversarial wave drained nothing")
+        _, wall_flush, launches_flush = driven(torch, svc.flush)
+        require(len(flushes) - n0 <= 1, f"wave {w}: the warm re-solves did "
+                "not ride one flush")
+        if len(flushes) > n0:
+            for k in FUSED_KERNELS:
+                require(launches_flush[k] > 0, f"wave {w}'s flush never "
+                        f"launched {k}")
+        checks = []
+        for (sid, _), f in zip(items, futs):
+            r = f.result()
+            _, s, t = graphs[sids.index(sid)]
+            rec = svc._stream(sid).chain.get(r.version)
+            require(rec.value == r.maxflow, "a version's value differs")
+            cut_arcs, wall_check, _ = driven(torch, lambda rec=rec, s=s, t=t:
+                                             check_version(handle_solution(
+                                                 rec.handle, rec.value),
+                                                 s, t))
+            checks.append({"version": r.version, "value": r.maxflow,
+                           "warm": r.warm, "cycles": r.cycles,
+                           "cut_arcs": cut_arcs, "check_wall_s": wall_check})
+        rows.append({"wave": w, "streams": len(items),
+                     "events": [[repr(ev) for ev in b] for _, b in items],
+                     "apply_wall_s": wall_apply,
+                     "apply_launches": launches_apply,
+                     "corrections": n_corr, "pooled_drains": n_drain,
+                     "drained_streams_equal_plain": drained,
+                     "flush_wall_s": wall_flush,
+                     "flush_launches": launches_flush, "versions": checks})
+        paths[f"serve_stream_wave{w}"] = launches_flush
+    # the last version of each stream against scipy on the folded graph
+    want = []
+    for i, (g, s, t) in enumerate(graphs):
+        folded = apply_events_to_graph(g, [adv[i]] + mixed[i:i + 1])
+        want.append(pool.apply_async(scipy_maxflow, (
+            folded.n, folded.edges, folded.cap, s, t)))
+    closes = []
+    for i, (sid, o) in enumerate(zip(sids, want)):
+        got, value = svc.stream_query(sid).maxflow, o.get()[0]
+        require(got == value, f"stream {i}'s last value {got} != scipy "
+                f"Dinic on the folded graph {value}")
+        closes.append(svc.close_stream(sid))
+        require(closes[-1]["rebuilds"] == int(i < SERVE_MIXED),
+                f"stream {i}: {closes[-1]['rebuilds']} structural rebuilds")
+    st = svc.stats()
+    serve_clean(st, REGISTRY.snapshot(), "serve_streams")
+    emit({"phase": "serve_streams", "streams": len(sids),
+          "open_wall_s": wall_open, "open_launches": paths["serve_open"],
+          "waves": rows, "close_stream": closes,
+          "bucket_counters": st["bucket_counters"]})
+    return paths
+
+
+def serve_policy(torch, graphs, oracles):
+    """Phase ``serve_policy``: ``ServiceConfig(mode="auto", max_batch=4)``
+    on 20 ``washington_rlg`` instances of one bucket: 4 trial flushes
+    (each first signature re-dispatched warm), then one in the pinned
+    mode.  Every value against scipy's Dinic; each kernel-mode flush
+    launched its kernels, the ``vc`` flush none, and each kernel-mode
+    trial's rows equal the plain ``batched_solve_impl`` on the card
+    (:func:`rows_vs_plain`); no rung of the ladder taken."""
+    from repro_torch.obs import REGISTRY, TRACER
+    from repro_torch.serving import MaxflowService, ServiceConfig
+
+    REGISTRY.reset()
+    TRACER.clear()
+    TRACER.enable()
+    svc = MaxflowService(ServiceConfig(mode="auto", max_batch=POLICY_BATCH))
+    flushes = flush_recorder(torch, svc)
+
+    def run():
+        futs = [svc.submit(*x) for x in graphs]
+        svc.poll()
+        return [f.result() for f in futs]
+
+    res, wall, launches = driven(torch, run)
+    want = [o.get()[0] for o in oracles]
+    require([r.maxflow for r in res] == want,
+            f"auto values {[r.maxflow for r in res]} != scipy Dinic {want}")
+    st = svc.stats()
+    serve_clean(st, REGISTRY.snapshot(), "serve_policy")
+    (pol,) = st["mode_policy"].values()
+    expect = {"vc": (), "vc_kernel": VC_KERNEL_KERNELS,
+              "vc_kernel_bsearch": MAIN_KERNELS, "vc_fused": FUSED_KERNELS}
+    require(len(flushes) == len(graphs) // POLICY_BATCH
+            and [f["modes"][0] for f in flushes[:4]] == pol["candidates"]
+            and all(len(f["modes"]) == 2 for f in flushes[:4])
+            and flushes[4]["modes"] == [pol["pinned"]],
+            f"not 4 trials then the pin: {[f['modes'] for f in flushes]}")
+    for f in flushes:
+        mode = f["modes"][0]
+        for k in expect[mode]:
+            require(f["launches"][k] > 0, f"a {mode} flush never launched "
+                    f"{k}")
+        if mode == "vc":
+            require(not any(f["launches"].values()),
+                    "the vc flush launched a kernel")
+    (key,) = svc._buckets
+    t0 = time.perf_counter()
+    held = {}
+    for i, f in enumerate(flushes[:4]):
+        mode = f["modes"][0]
+        if mode != "vc":
+            rows = res[i * POLICY_BATCH:(i + 1) * POLICY_BATCH]
+            held[mode] = rows_vs_plain(
+                torch, [svc.results.peek(r.graph_id).handle for r in rows],
+                rows, key, mode, f"serve_policy[{mode}]")
+    emit({"phase": "serve_policy", "instances": len(graphs),
+          "rows_equal_plain": held,
+          "plain_rows_wall_s": time.perf_counter() - t0,
+          "bucket": next(iter(st["mode_policy"])), "wall_s": wall,
+          "flushes": flushes, "per_cycle_s": pol["per_cycle_s"],
+          "pinned": pol["pinned"], "launches": launches,
+          "dispatches_by_mode": st["executables"]["dispatches_by_mode"]})
+    return {f"serve_policy[{f['modes'][0]}]": f["launches"]
+            for f in flushes[:4]}
+
+
+def launcher_vs_dinic(pool, drive_log, records, what):
+    """Every value a launcher run served against scipy's Dinic on the
+    graph its work item denotes (``workload.resolve_item`` on the items
+    the run's ``drive`` call was given, in ``drive_log``).  Returns the
+    number of values held."""
+    from repro_torch.serving.workload import resolve_item
+
+    ((args, _, _),) = drive_log
+    items = args[1]
+    require(len(items) == len(records), f"{what}: {len(records)} records "
+            f"for {len(items)} items")
+    held = []
+    for item, rec in zip(items, records):
+        if rec["error"] is None:
+            g, s, t = resolve_item(items, item)
+            held.append((rec["result"].maxflow, pool.apply_async(
+                scipy_maxflow, (g.n, g.edges, g.cap, s, t))))
+    got = [v for v, _ in held]
+    want = [o.get()[0] for _, o in held]
+    require(got == want, f"{what}: served values {got} != scipy Dinic "
+            f"{want}")
+    return len(held)
+
+
+def serve_launcher(torch, quick, pool):
+    """Phase ``serve_launcher``: ``repro_torch.launch.serve_maxflow.main``
+    on the card, once in the default ``auto`` mode with ``--verify``, a
+    trace and a snapshot (the ``--smoke`` gates on what it wrote, and the
+    telemetry overhead measured and printed), and once as the chaos run
+    (a flood into bounded queues with deadlines, injected dispatch
+    errors, corruptions and an always-failing ``vc_fused``): every served
+    value verified, every error typed, every injected dispatch fault
+    counted by the service.  Both runs' served values are also held
+    against scipy's Dinic (:func:`launcher_vs_dinic`)."""
+    import tempfile
+
+    from repro_torch.errors import DeadlineExceeded, Overloaded
+    from repro_torch.launch import serve_maxflow
+    from repro_torch.obs import REGISTRY, TRACER
+    from repro_torch.serving import workload
+    from repro_torch.serving.workload import synthesize
+
+    TRACER.disable()
+    TRACER.clear()
+    n_req = LAUNCHER_REQUESTS[quick]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, snap_path = f"{tmp}/trace.json", f"{tmp}/metrics.json"
+        REGISTRY.reset()
+        with recording(workload, "drive") as drive_log:
+            (svc, records), wall, launches = driven(torch, lambda: (
+                serve_maxflow.main(["--requests", str(n_req), "--verify",
+                                    "--trace-out", trace,
+                                    "--metrics-out", snap_path])))
+        with open(snap_path) as f:
+            snap = json.load(f)
+        serve_maxflow.check_artifacts(snap, trace, auto_mode=True)
+    require(all(r["error"] is None for r in records),
+            "the launcher's run failed a request")
+    held = launcher_vs_dinic(pool, drive_log, records, "serve_launcher")
+    serve_clean(snap["stats"], snap["metrics"], "serve_launcher")
+    require(any(launches[k] for k in KERNELS), "the launcher's auto run "
+            "launched no kernel")
+    items = synthesize(n_req, seed=0, matching_frac=0.3, repeat_frac=0.15,
+                       resubmit_frac=0.2)
+    overhead = serve_maxflow.measure_telemetry_overhead(
+        items, dict(mode="auto", max_batch=8, cycle_chunk=16))
+    st = snap["stats"]
+    emit({"phase": "serve_launcher", "run": "auto", "requests": n_req,
+          "wall_s": wall, "launches": launches, "solved": st["solved"],
+          "batches": st["batches"], "buckets": st["buckets"],
+          "mode_policy": st["mode_policy"], "values_equal_dinic": held,
+          "telemetry_overhead": overhead})
+
+    REGISTRY.reset()
+    with recording(workload, "drive") as drive_log:
+        (svc, records), wall_c, launches_c = driven(torch, lambda: (
+            serve_maxflow.main(["--requests", str(CHAOS_REQUESTS[quick]),
+                                "--process", "flood", "--max-queue", "4",
+                                "--deadline-ms", "5000", "--poll-every",
+                                "4", "--chaos", "--chaos-fail-modes",
+                                "vc_fused", "--verify"])))
+    held_c = launcher_vs_dinic(pool, drive_log, records,
+                               "serve_launcher chaos")
+    errs = [r["error"] for r in records if r["error"] is not None]
+    require(all(isinstance(e, (Overloaded, DeadlineExceeded)) for e in errs),
+            f"an untyped error: {[type(e).__name__ for e in errs]}")
+    st = svc.stats()
+    fi = st["robustness"]["faults_injected"]
+    counted = sum(v for k, v in REGISTRY.snapshot()["counters"].items()
+                  if k.startswith("serve.dispatch_errors"))
+    require(counted == fi["dispatch_errors"] + fi["mode_failures"],
+            f"{counted} dispatch errors counted, {fi} injected")
+    kinds = {}
+    for e in errs:
+        kinds[type(e).__name__] = kinds.get(type(e).__name__, 0) + 1
+    emit({"phase": "serve_launcher", "run": "chaos",
+          "requests": len(records), "served": len(records) - len(errs),
+          "errors": kinds, "values_equal_dinic": held_c, "wall_s": wall_c,
+          "launches": launches_c,
+          "robustness": st["robustness"], "dispatch_errors_counted": counted})
+    return {"serve_launcher[auto]": launches,
+            "serve_launcher[chaos]": launches_c}
+
+
+def serving(torch, quick, bgraphs, oracles_b, pool):
+    """The serving phases, each driven with the launch counts set to 0
+    just before it and read just after."""
+    from repro_torch.graphs.generators import washington_rlg
+
+    bsize, psize = SIZES[quick][2], POLICY_SIZE[quick]
+    t0 = time.perf_counter()
+    extra = [washington_rlg(*bsize, seed=SEED + BATCH + i)
+             for i in range(SERVE_FRESH - BATCH)]
+    policy = [washington_rlg(*psize, seed=SEED + i)
+              for i in range(POLICY_INSTANCES)]
+    emit({"phase": "serve_graphs", "gen_s": time.perf_counter() - t0,
+          "serve_path": f"washington_rlg({bsize[0]}, {bsize[1]}, "
+          f"seed={SEED}..{SEED + SERVE_FRESH - 1})",
+          "serve_policy": f"washington_rlg({psize[0]}, {psize[1]}, "
+          f"seed={SEED}..{SEED + POLICY_INSTANCES - 1})"})
+    oracles = oracles_b + [pool.apply_async(scipy_maxflow, (
+        g.n, g.edges, g.cap, s, t)) for g, s, t in extra]
+    p_oracles = [pool.apply_async(scipy_maxflow, (g.n, g.edges, g.cap, s, t))
+                 for g, s, t in policy]
+    from repro_torch.streaming import reroute
+
+    t0 = time.perf_counter()
+    with recording(reroute, "drain_prepared") as drain_log:
+        svc, sctx, paths = serve_path(torch, bgraphs + extra, oracles, pool,
+                                      drain_log)
+        paths.update(serve_streams(torch, svc, sctx, pool, drain_log))
+    paths.update(serve_policy(torch, policy, p_oracles))
+    paths.update(serve_launcher(torch, quick, pool))
+    emit({"phase": "serving_done", "seconds": time.perf_counter() - t0})
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1447,6 +2205,7 @@ def main(argv=None) -> int:
                                          oracles)
         views_and_modes(args.quick, small, torch, problem, batch, ctx, paths)
         main_oracle(ctx, oracles[0])
+        paths.update(serving(torch, args.quick, bgraphs, oracles[1:], pool))
     emit({"phase": "launches_by_path", **paths})
 
     # -- 6. no host sync inside an engine chunk -----------------------------

@@ -83,7 +83,9 @@ class WarmStartHandle:
       preflow->flow conversion lazily, exactly once, on that device (a
       handle from a card solve corrects on the card, on the min-search
       kernel in the kernel modes); batched solves hand the handle an
-      already-corrected residual (``corrected=True``);
+      already-corrected residual (``corrected=True``) and serving
+      handles carry a pooled ``corrector`` that fixes whole microbatches
+      in one device dispatch;
     * :meth:`apply` turns a set of signed ``CapacityUpdate``s into the
       inputs of the next solve, warm for *both* signs: increases yield
       budgeted warm-start arrays (only the new capacity gets routed —
@@ -97,11 +99,11 @@ class WarmStartHandle:
     """
 
     __slots__ = ("residual", "s", "t", "device", "_res", "_e", "_corrected",
-                 "_use_kernel", "__weakref__")
+                 "_corrector", "_use_kernel", "__weakref__")
 
     def __init__(self, residual: ResidualCSR, s: int, t: int,
                  res: np.ndarray, e: np.ndarray, corrected: bool = False,
-                 use_kernel: bool = False, device=None):
+                 corrector=None, use_kernel: bool = False, device=None):
         self.residual = residual
         self.s = int(s)
         self.t = int(t)
@@ -116,6 +118,12 @@ class WarmStartHandle:
         # the kernel modes hand out use_kernel=True so the correction runs
         # on the min-search kernel (results are bit for bit the plain's)
         self._use_kernel = bool(use_kernel)
+        # optional group hook: a no-arg callable that phase-2-corrects this
+        # handle *and its batch-mates* in one device dispatch (it must call
+        # _install_corrected on every member).  Lets the serving path defer
+        # the correction of a whole flushed microbatch until any one entry
+        # first needs it.
+        self._corrector = corrector
 
     @property
     def corrected(self) -> bool:
@@ -191,12 +199,30 @@ class WarmStartHandle:
     def maxflow(self) -> int:
         return int(self._e[self.t])
 
+    def _install_corrected(self, res: np.ndarray, e: np.ndarray) -> None:
+        """Accept an externally computed phase-2 correction (the batched
+        group dispatch installs results on every member handle).  A handle
+        that already corrected itself keeps its cached arrays — phase-2
+        results are only unique up to cancellation-path choice, and
+        ``arrays()`` promises a stable value."""
+        if not self._corrected:
+            self._res = batched.as_state_dtype(res, "corrected res")
+            self._e = batched.as_state_dtype(e, "corrected excess")
+            self._corrected = True
+        self._corrector = None
+
     def arrays(self, reference: bool = False) -> tuple[np.ndarray, np.ndarray]:
         """Phase-2-corrected ``(res, e)`` — a genuine max flow, where the
-        only remaining excess is ``e[t] == maxflow``.  The correction runs
-        on the handle's device; ``reference=True`` forces the host-BFS
-        phase 2 instead (only relevant on the first call — the result is
-        cached)."""
+        only remaining excess is ``e[t] == maxflow``.  A handle with a
+        ``corrector`` calls it once, first (one pooled dispatch corrects
+        its whole group), unless ``reference=True``; otherwise the
+        correction runs on the handle's device, or with ``reference=True``
+        the host-BFS phase 2 (only relevant on the first call — the result
+        is cached)."""
+        if not self._corrected and self._corrector is not None \
+                and not reference:
+            corrector, self._corrector = self._corrector, None
+            corrector()  # one batched dispatch corrects the whole group
         if not self._corrected:
             state = pr.PRState(res=self._res,
                                h=np.zeros(self.residual.n, np.int32),
@@ -211,6 +237,7 @@ class WarmStartHandle:
             e[self.t] = self.maxflow
             self._e = e
             self._corrected = True
+            self._corrector = None
         return self._res, self._e
 
     def apply(self, updates) -> tuple[ResidualCSR, tuple | None]:

@@ -24,8 +24,9 @@ contract: it clones ``res/h/e`` and runs the in-place entry with the
 gate open.
 
 CUDA tensors launch the kernel on the current stream (or raise); CPU
-tensors take the plain version, :func:`fused_discharge_batched_plain`,
-and copy its state into ``res/h/e`` under the gate.
+tensors take the plain version, :func:`fused_discharge_batched_plain_`
+(which copies :func:`fused_discharge_batched_plain`'s state into
+``res/h/e`` under the gate).
 ``fused_discharge_batched.launches`` counts kernel launches of both
 entries.
 """
@@ -121,16 +122,10 @@ def fused_discharge_batched_(s, t, indptr, heads, rev, res, h, e, *, n: int,
     if scratch is None:
         scratch = discharge_scratch(bsz, n, k, dev)
     if dev.type == "cpu":
-        new = fused_discharge_batched_plain(s, t, indptr, heads, rev, res, h,
-                                            e, n=n, k=k, counters=True)
-        outs = (*new[3:5], torch.stack(new[5]))
-        if gate is not None:
-            new = [torch.where(gate, x, y) for x, y in zip(new[:3],
-                                                          (res, h, e))]
-            outs = [torch.where(gate, x, 0) for x in outs]
-        for x, y in zip((res, h, e, *scratch[2:]), (*new[:3], *outs)):
-            x.copy_(y)
-    elif dev.type == "cuda":
+        return fused_discharge_batched_plain_(
+            s, t, indptr, heads, rev, res, h, e, n=n, k=k, gate=gate,
+            scratch=scratch, counters=counters)
+    if dev.type == "cuda":
         fn = build.entry("discharge", "fused_discharge_launch")
         with torch.cuda.device(dev):
             code = fn(*(x.data_ptr() for x in (s, t, indptr, heads, rev, res,
@@ -142,9 +137,31 @@ def fused_discharge_batched_(s, t, indptr, heads, rev, res, h, e, *, n: int,
         fused_discharge_batched.launches += 1
     else:
         raise ValueError(f"unsupported device {dev}")
+    return _outputs(scratch, counters)
+
+
+def _outputs(scratch, counters):
     if counters:
         return scratch.live, scratch.pushed, tuple(scratch.counts.unbind(0))
     return scratch.live, scratch.pushed
+
+
+def fused_discharge_batched_plain_(s, t, indptr, heads, rev, res, h, e, *,
+                                   n: int, k: int, gate, scratch,
+                                   counters: bool = False):
+    """The plain version of :func:`fused_discharge_batched_`, on whatever
+    device the tensors are: :func:`fused_discharge_batched_plain`'s state
+    copied into ``res/h/e`` and its outputs into ``scratch`` under the
+    gate.  Same arguments (``scratch`` required) and results."""
+    new = fused_discharge_batched_plain(s, t, indptr, heads, rev, res, h, e,
+                                        n=n, k=k, counters=True)
+    outs = (*new[3:5], torch.stack(new[5]))
+    if gate is not None:
+        new = [torch.where(gate, x, y) for x, y in zip(new[:3], (res, h, e))]
+        outs = [torch.where(gate, x, 0) for x in outs]
+    for x, y in zip((res, h, e, *scratch[2:]), (*new[:3], *outs)):
+        x.copy_(y)
+    return _outputs(scratch, counters)
 
 
 def fused_discharge_batched(s, t, indptr, heads, rev, res, h, e, *, n: int,
@@ -184,37 +201,36 @@ fused_discharge_batched.launches = 0
 def fused_discharge_batched_plain(s, t, indptr, heads, rev, res, h, e, *,
                                   n: int, k: int = K_DEFAULT,
                                   counters: bool = False):
-    """The plain PyTorch version of the kernel: ``k`` cycles of the port's
-    own ``vc_step`` per row (row by row), with ``live``, ``pushed`` and
-    the four counters of ``solvercounters.cycle_stats`` and the
-    relabel count.  Same arguments and results as
-    :func:`fused_discharge_batched`, on whatever device the tensors are;
-    it reads ``s``/``t`` on the host."""
+    """The plain PyTorch version of the kernel: ``k`` cycles of the batched
+    core's plain ``vc`` step over all rows at once (each row's cycle is
+    ``pushrelabel.vc_step`` on that row), with ``live``, ``pushed`` and
+    the four counters of ``solvercounters.cycle_stats`` and the relabel
+    count.  Same arguments and results as
+    :func:`fused_discharge_batched`, on whatever device the tensors
+    are, without a host read."""
+    from repro_torch.core import batched
     from repro_torch.core import pushrelabel as pr
     from repro_torch.obs import solvercounters as sc
 
-    bsz, a = res.shape
+    a = res.shape[1]
     meta = pr.GraphMeta(n=n, num_arcs=a, deg_max=0, layout="batched")
-    rows = []
-    for b in range(bsz):
-        g = pr.DeviceGraph(indptr=indptr[b], heads=heads[b], tails=None,
-                           rev=rev[b])
-        sb, tb = int(s[b]), int(t[b])
-        state = pr.PRState(res=res[b], h=h[b], e=e[b])
-        cnt = []
-        for _ in range(k):
-            nact, fr, md = sc.cycle_stats(g, meta, state, sb, tb)
-            new = pr.vc_step(g, meta, state, sb, tb)
-            cnt.append((nact, nact - sc.count_relabels(state.h, new.h), fr,
-                        md))
-            state = new
-        act, psh, fr, md = (torch.stack(c) for c in zip(*cnt))
-        rows.append((*state, (act > 0).sum(dtype=_I32),
-                     (psh > 0).any().to(_I32), act, psh, fr, md))
-    res2, h2, e2, live, pushed, *cnt = (torch.stack(c) for c in zip(*rows))
+    rows = pr.DeviceGraph(indptr=indptr, heads=heads, tails=None, rev=rev)
+    bg = batched.BatchedDeviceGraph(indptr=indptr, heads=heads, tails=None,
+                                    rev=rev, n=None, num_arcs=None, s=s, t=t)
+    flat = batched._flat(rows, meta)
+    state = batched.BatchedPRState(res, h, e)
+    cnt = []
+    for _ in range(k):
+        nact, fr, md = sc.cycle_stats(rows, meta, state, s, t)
+        new = batched._kernel_batch_step(bg, meta, state, "vc", flat)
+        cnt.append((nact, nact - sc.count_relabels(state.h, new.h), fr, md))
+        state = new
+    act, psh, fr, md = (torch.stack(c, dim=1) for c in zip(*cnt))
+    live = (act > 0).sum(dim=1, dtype=_I32)
+    pushed = (psh > 0).any(dim=1).to(_I32)
     if counters:
-        return res2, h2, e2, live, pushed, tuple(cnt)
-    return res2, h2, e2, live, pushed
+        return (*state, live, pushed, (act, psh, fr, md))
+    return (*state, live, pushed)
 
 
 def fused_discharge(g, meta, state, s, t, *, k: int = K_DEFAULT,

@@ -825,3 +825,108 @@ def test_stream_on_the_card_matches_cpu(cuda):
     assert card.stats()["structural_rebuilds"] == 1
     assert got.value == Solver(mode="vc_kernel_bsearch").solve(
         MaxflowProblem(apply_events_to_graph(g, batches), s, t)).value
+
+
+def _served(device, mode):
+    """``synthesize(24, seed=0)`` through a service on ``device``: every
+    request's result (or error type), and the service."""
+    from repro_torch.serving import MaxflowService, ServiceConfig
+    from repro_torch.serving.workload import drive, synthesize
+
+    svc = MaxflowService(ServiceConfig(mode=mode, max_batch=4,
+                                       cycle_chunk=16, device=device))
+    recs = drive(svc, synthesize(24, seed=0, matching_frac=0.3,
+                                 repeat_frac=0.15, resubmit_frac=0.2))
+    return svc, [(type(r["error"]).__name__, r["result"] and (
+        r["result"].graph_id, r["result"].maxflow, r["result"].cycles,
+        r["result"].rounds, r["result"].warm, r["result"].cached,
+        r["result"].batch_size, r["result"].version)) for r in recs]
+
+
+def test_fused_service_on_the_card_matches_cpu(cuda):
+    """A ``vc_fused`` service on the card (the fused kernel, the gather
+    entry in its relabels and pooled corrections) serves the workload
+    request for request as on the CPU, and the values of ``vc`` there;
+    every cached handle corrects to the CPU's arrays."""
+    card, got = _served(None, "vc_fused")
+    cpu, want = _served("cpu", "vc_fused")
+    _, plain = _served("cpu", "vc")
+    assert card.device.type == "cuda"
+    assert got == want
+    assert [(e, r and (*r[:2], *r[4:])) for e, r in got] \
+        == [(e, r and (*r[:2], *r[4:])) for e, r in plain]
+    assert list(card.results._entries) == list(cpu.results._entries)
+    for k in cpu.results._entries:
+        for x, y in zip(card.results.peek(k).handle.arrays(),
+                        cpu.results.peek(k).handle.arrays()):
+            np.testing.assert_array_equal(x, y)
+    rb = card.stats()["robustness"]
+    assert not any(v for k, v in rb.items()
+                   if k not in ("ladders", "faults_injected"))
+
+
+def test_pooled_correction_kernel_matches_plain(cuda):
+    """The service's pooled phase 2 on the gather entry (one launch a step
+    for the whole group) against the plain scan selector, both on the
+    card: bit-equal corrected arrays, valid handles."""
+    from repro_torch.kernels.segmin import tile_min_neighbor_gather
+    from repro_torch.serving import MaxflowService, ServiceConfig
+
+    insts = [washington_rlg(24, 24, seed=i) for i in range(6)]
+    got = {}
+    for kernel in (True, False):
+        svc = MaxflowService(ServiceConfig(mode="vc", max_batch=4,
+                                           phase2_kernel=kernel))
+        futs = [svc.submit(*x) for x in insts]
+        svc.flush()
+        tile_min_neighbor_gather.launches = 0
+        tile_min_neighbor_gather.dense_launches = 0
+        got[kernel] = [svc.results.peek(f.result().graph_id).handle.arrays()
+                       for f in futs]
+        dense = tile_min_neighbor_gather.dense_launches
+        avq = tile_min_neighbor_gather.launches - dense
+        assert (dense > 0 and avq > 0) == kernel
+        for f in futs:
+            svc.results.peek(f.result().graph_id).handle.validate()
+    for a, b in zip(got[True], got[False]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_only_typed_faults_take_the_ladder_on_the_card(cuda, monkeypatch):
+    """On the card a dispatch error that is not an injected fault (a
+    kernel that fails to build or launch) propagates: the flush's
+    requests fail with ``DispatchFailed`` and no plain mode or host solve
+    serves them.  An ``InjectedFault`` still walks the ladder."""
+    from repro_torch.errors import DispatchFailed
+    from repro_torch.runtime.fault import FaultPlan
+    from repro_torch.serving import MaxflowService, ServiceConfig
+    from repro_torch.serving import maxflow_service
+
+    insts = [washington_rlg(12, 12, seed=i) for i in range(4)]
+    solve = maxflow_service.batched.batched_resolve
+
+    def broken(*a, **k):
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    monkeypatch.setattr(maxflow_service.batched, "batched_resolve", broken)
+    svc = MaxflowService(ServiceConfig(mode="vc_fused", max_batch=4))
+    futs = [svc.submit(*x) for x in insts]
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        svc.flush()
+    for f in futs:
+        with pytest.raises(DispatchFailed):
+            f.result()
+    rb = svc.stats()["robustness"]
+    assert rb["dispatch_failed"] == 4
+    assert rb["retries"] == rb["transient_demotions"] == 0
+    assert rb["host_fallbacks"] == 0
+    monkeypatch.setattr(maxflow_service.batched, "batched_resolve", solve)
+    svc = MaxflowService(ServiceConfig(mode="vc_fused", max_batch=4,
+                                       retry_base_s=0),
+                         faults=FaultPlan(seed=0, fail_modes=("vc_fused",)))
+    got = [svc.submit(*x) for x in insts]
+    svc.flush()
+    assert [f.result().maxflow for f in got] == [
+        dinic_maxflow(*x) for x in insts]
+    assert svc.stats()["robustness"]["transient_demotions"] >= 1
