@@ -82,7 +82,23 @@ just before it and read just after:
   snapshot and trace it wrote, its telemetry overhead printed), and as
   the chaos run (flood, bounded queues, deadlines, injected faults):
   every served value against scipy's Dinic, every error typed and every
-  injected dispatch fault counted.
+  injected dispatch fault counted;
+* ``distributed_path`` — ``Solver(backend="distributed", mode="vc",
+  global_relabel_cadence=1024).solve(...)`` on the main graph over a
+  one-rank NCCL group opened in this process, its value against scipy's
+  Dinic; ``solve_distributed``'s three exchanges (``replicated``,
+  ``sharded``, ``sparse``) on ``washington_rlg(256, 256)``, each against
+  Dinic and all ending in the same state and superstep count.  The path
+  has no kernel (its min search is the plain one, as in the reference),
+  so every launch count must stay 0; one engine chunk of steps in each
+  exchange and one of relabel sweeps must run without a host sync, and
+  each is timed a step with its costliest device operations (the NCCL
+  kernels among them), beside the all-reduce of MIN alone and a sweep
+  with its all-reduce stubbed out; then the launcher's card branch,
+  ``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+  repro_torch.launch.maxflow --backend distributed`` on the 256x256
+  graph (NCCL over ``env://``, the rank on ``LOCAL_RANK``'s card), its
+  printed value against scipy's Dinic.
 
 Outside the chaos run no serving phase may take a rung of the service's
 degradation ladder (retries, demotions, host fallbacks, dispatch errors):
@@ -127,7 +143,10 @@ import argparse
 import contextlib
 import json
 import multiprocessing
+import os
 import pathlib
+import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -257,23 +276,25 @@ def max_abs_err(torch, got, want) -> int:
     return err
 
 
-def top_device_ops(torch, fn, steps: int, top: int = 6) -> dict:
+def top_device_ops(torch, fn, steps: int, top: int | None = 6) -> dict:
     """The device time per step of the ``top`` costliest device kernels
-    in one call of ``fn`` (``steps`` steps), by ``torch.profiler``, in µs
-    (names cut to 80 characters; ``aten::`` entries are the host-side
-    operators around those kernels and are left out)."""
+    (``None``: all) in one call of ``fn`` (``steps`` steps), by
+    ``torch.profiler``, in µs (names cut to 80 characters; ``aten::``
+    entries are the host-side operators around those kernels and are
+    left out)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ops = sorted(((e.key[:80], e.self_device_time_total / steps)
-                  for e in prof.key_averages()
-                  if e.self_device_time_total > 0
-                  and not e.key.startswith("aten::")),
-                 key=lambda kv: -kv[1])
-    return {k: v for k, v in ops[:top]}
+    # kernels whose names agree in their first 80 characters are summed
+    us = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0 and not e.key.startswith("aten::"):
+            us[e.key[:80]] = (us.get(e.key[:80], 0.0)
+                              + e.self_device_time_total / steps)
+    return dict(sorted(us.items(), key=lambda kv: -kv[1])[:top])
 
 
 def search_reads(torch, arcs, indptr, heads, tails, steps: int):
@@ -493,12 +514,13 @@ def main_path_and_modes(small, torch, problem, batch, oracles):
 
 def main_oracle(ctx, oracle):
     """The main path's value, and so its min cut's, against scipy's Dinic
-    on the main graph."""
+    on the main graph; returns scipy's value."""
     want, t_scipy = oracle.get()
     emit({"phase": "oracle", "scipy_dinic_s": t_scipy, "scipy_value": want})
     main = ctx["main"]
     require(main.value == want,
             f"vc_kernel_bsearch value {main.value} != scipy Dinic {want}")
+    return want
 
 
 def flow_divergence(r, flows):
@@ -1789,6 +1811,249 @@ def serving(torch, quick, bgraphs, oracles_b, pool):
     return paths
 
 
+def chunk_timing(torch, run, chunk: int, per: int = 1) -> dict:
+    """One engine chunk's cost a step, ``run()`` being the chunk: host
+    enqueue, wall and device ms (and a cycle's, a step being ``per``
+    cycles), and the device's idle share of the wall."""
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        run()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / (10 * chunk)
+    dev_step = device_ms(torch, run, REPS, 100_000_000) / chunk
+    return {"cycles_per_step": per,
+            "host_ms_per_step": 1e3 * (t1 - t0) / (10 * chunk),
+            "wall_ms_per_step": wall, "device_ms_per_step": dev_step,
+            "host_ms_per_cycle": 1e3 * (t1 - t0) / (10 * chunk * per),
+            "wall_ms_per_cycle": wall / per,
+            "device_ms_per_cycle": dev_step / per,
+            "device_idle_share": max(0.0, 1 - dev_step / wall)}
+
+
+def no_launches(counts, what):
+    """This path launches no kernel: every count stayed 0."""
+    require(not any(counts.values()), f"{what} launched a kernel: {counts}")
+
+
+def distributed_path(torch, problem, small, side, want, want_small):
+    """Phase ``distributed_path``: the distributed backend on a one-rank
+    NCCL group opened in this process.  ``Solver(backend="distributed")``
+    on the main graph against scipy's Dinic (``want``); the three
+    exchanges on the ``small`` problem, each against Dinic
+    (``want_small``) and all three ending in the same state; no kernel
+    launched; one engine chunk of steps in each exchange and one of
+    relabel sweeps with no host sync; each step's time; then the launcher
+    on ``small`` (``washington_rlg(side, side)``) under torchrun."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.api import Solver
+    from repro_torch.core import distributed as D
+
+    cadence = 1024
+    dev = torch.device("cuda", 0)
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            sol, wall, paths["distributed"] = driven(
+                torch, lambda: Solver(
+                    backend="distributed", mode="vc",
+                    global_relabel_cadence=cadence).solve(problem))
+            no_launches(paths["distributed"], "the distributed solve")
+            st = sol.stats
+            emit({"phase": "distributed_path", "backend": "distributed",
+                  "group": f"{dist.get_backend()}, world size "
+                  f"{dist.get_world_size()}", "wall_s": wall,
+                  "value": sol.value, "scipy_value": want,
+                  "supersteps": st.rounds, "steps": st.cycles,
+                  "gr_sweeps": st.gr_sweeps,
+                  "launches": paths["distributed"]})
+            require(sol.value == want,
+                    f"distributed value {sol.value} != scipy Dinic {want}")
+
+            r = small.residual("bcsr")
+            outs = {}
+            for mode in D.MODES:
+                out, wall, counts = driven(
+                    torch, lambda mode=mode: D.distributed_solve_impl(
+                        r, small.s, small.t, mode=mode, cycles=cadence))
+                no_launches(counts, f"the {mode} exchange")
+                paths[f"distributed[{mode}]"] = counts
+                outs[mode] = (out, D.gather_res(out.res, out.meta))
+                emit({"phase": "distributed_modes", "mode": mode,
+                      "wall_s": wall, "value": out.value,
+                      "scipy_value": want_small,
+                      "supersteps": out.supersteps,
+                      "steps": out.supersteps * cadence,
+                      "gr_sweeps": out.gr_sweeps})
+                require(out.value == want_small,
+                        f"{mode} value {out.value} != scipy Dinic "
+                        f"{want_small}")
+            base, base_res = outs["replicated"]
+            for mode, (out, res) in outs.items():
+                require(out.supersteps == base.supersteps
+                        and out.gr_sweeps == base.gr_sweeps
+                        and torch.equal(res, base_res)
+                        and torch.equal(out.h, base.h)
+                        and torch.equal(out.e, base.e),
+                        f"the {mode} exchange ends elsewhere than the "
+                        "replicated one")
+            distributed_steps(torch, dev, problem)
+        finally:
+            dist.destroy_process_group()
+    distributed_launcher(side, want_small)
+    return paths
+
+
+def distributed_launcher(side, want_small):
+    """The launcher's card branch in a process group of its own: one
+    rank under ``torch.distributed.run --standalone``, which initialises
+    NCCL from ``env://`` on ``LOCAL_RANK``'s card, solving the batch's
+    first graph, ``washington_rlg(side, side, seed=SEED)``, at the main
+    path's cadence; its printed value against scipy's Dinic
+    (``want_small``).  Its own ``--verify`` (the port's pure-Python
+    Dinic) is left off: scipy's is the oracle here.  The whole process
+    group it starts is killed on the way out."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.maxflow",
+           "--backend", "distributed", "--generator", "washington",
+           "--vertices", str(side * side), "--seed", str(SEED),
+           "--cycle-chunk", "1024"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    wall = time.perf_counter() - t0
+    found = re.search(r"^V=.* device=(\S+) maxflow=(\d+) .*$", out, re.M)
+    require(proc.returncode == 0 and found is not None,
+            f"the launcher under torchrun failed (rc {proc.returncode}): "
+            f"{out[-1000:]} {err[-3000:]}")
+    device, value = found.group(1), int(found.group(2))
+    emit({"phase": "distributed_launcher", "command": " ".join(cmd[1:]),
+          "wall_s": wall, "device": device, "value": value,
+          "scipy_value": want_small,
+          "printed": found.group(0)})
+    require(device.startswith("cuda"),
+            f"the launcher ran on {device}, not the card")
+    require(value == want_small,
+            f"the launcher's value {value} != scipy Dinic {want_small}")
+
+
+def distributed_steps(torch, dev, problem):
+    """On the main graph's one-rank partition at a mid-solve state (exact
+    labels, then 256 steps): one engine chunk of steps in each exchange
+    (at one rank a slab is the whole residual) and one of relabel sweeps
+    run with no host sync, launch no kernel and agree; then each one's
+    time a step, and last its costliest device operations."""
+    import dataclasses
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import engine
+
+    r = problem.residual("bcsr")
+    chunk = engine.DEFAULT_CHUNK
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def counted(step):
+        return lambda c: (*step(*c[:3]), c[3] + 1)
+
+    slabs, meta, res0 = D.partition_graph(r, 1, problem.s, problem.t)
+    g = slabs[0].to(dev)
+    res, h, e = D.initial_state(slabs, meta, res0, 0, dev)
+    h = D.make_dist_global_relabel(meta, g)(res, h, e)[0]
+    res, h, e, _ = engine.run_bulk_loop(
+        counted(D.make_dist_step(meta, g)), (res, h, e, zero),
+        cond_fn=lambda c: c[3] < 256)
+    sweep = D.make_gr_sweep(meta, g)
+    dist0 = engine.fill_at(torch.full((meta.n,), D.INF, dtype=torch.int32,
+                                      device=dev), problem.t, 0)
+    loops = {"gr_sweep": engine.fixpoint_loop(lambda x: sweep(res, x), dist0,
+                                              cap=2**30)}
+    for mode in D.MODES:
+        step = D.make_dist_step(dataclasses.replace(meta, mode=mode), g)
+        loops[f"dist_step[{mode}]"] = (counted(step), lambda c: c[3] < 2**30,
+                                       (res, h, e, zero))
+    torch.cuda.synchronize()
+    reset_counts()
+    done = {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, (step, cond, carry) in loops.items():
+            done[name] = engine.run_chunk(step, carry, cond_fn=cond,
+                                          chunk=chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    no_launches(launch_counts(), "a distributed chunk")
+    for name, out in done.items():
+        require(int(out[-1]) == chunk,
+                f"the sync-free {name} chunk did not run its steps")
+    base = done["dist_step[replicated]"]
+    for mode in D.MODES:
+        require(all(torch.equal(a, b) for a, b in zip(
+            done[f"dist_step[{mode}]"], base)),
+            f"the {mode} exchange's chunk ends elsewhere")
+    emit({"phase": "distributed_no_host_sync", "ok": True, "chunk": chunk,
+          "loops": list(loops)})
+    rows = []
+    for name, (step, cond, carry) in loops.items():
+        def run(step=step, cond=cond, carry=carry):
+            return engine.run_chunk(step, carry, cond_fn=cond, chunk=chunk)
+
+        rows.append((run, {"phase": "distributed_step_timing", "loop": name,
+                           **chunk_timing(torch, run, chunk)}))
+    # a sweep's all-reduce alone on its (n,) int32 candidates, and the
+    # sweep without it (at one rank the all-reduce is the identity, so
+    # the stubbed sweep computes the same labels)
+    cand = dist0.clone()
+
+    def all_reduce_min():
+        for _ in range(chunk):
+            dist.all_reduce(cand, op=dist.ReduceOp.MIN)
+
+    def all_reduce_fresh():
+        for _ in range(chunk):
+            dist.all_reduce(torch.full_like(cand, D.INF),
+                            op=dist.ReduceOp.MIN)
+
+    emit({"phase": "distributed_step_timing",
+          "loop": "all_reduce[MIN] of the (n,) candidates, alone",
+          **chunk_timing(torch, all_reduce_min, chunk)})
+    emit({"phase": "distributed_step_timing",
+          "loop": "all_reduce[MIN] of a fresh (n,) tensor each call",
+          **chunk_timing(torch, all_reduce_fresh, chunk)})
+    step, cond, carry = loops["gr_sweep"]
+    with mock.patch.object(dist, "all_reduce", lambda *a, **k: None):
+        emit({"phase": "distributed_step_timing",
+              "loop": "gr_sweep, its all-reduce stubbed out",
+              **chunk_timing(torch, lambda: engine.run_chunk(
+                  step, carry, cond_fn=cond, chunk=chunk), chunk)})
+    # the profiler last, so that no host timing follows a profiled window
+    for run, row in rows:
+        ops = top_device_ops(torch, run, chunk, top=None)
+        emit({**row, "top_device_us_per_step": dict(list(ops.items())[:6]),
+              "nccl_device_us_per_step": sum(
+                  v for k, v in ops.items() if "nccl" in k.lower()),
+              "profiled_device_us_per_step": sum(ops.values())})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2204,8 +2469,13 @@ def main(argv=None) -> int:
         paths, ctx = main_path_and_modes(small, torch, problem, batch,
                                          oracles)
         views_and_modes(args.quick, small, torch, problem, batch, ctx, paths)
-        main_oracle(ctx, oracles[0])
+        want = main_oracle(ctx, oracles[0])
         paths.update(serving(torch, args.quick, bgraphs, oracles[1:], pool))
+    # -- 5c. the distributed backend, on a one-rank NCCL group ---------------
+    t0 = time.perf_counter()
+    paths.update(distributed_path(torch, problem, batch[0], bsize[0], want,
+                                  ctx["batch_values"][0]))
+    emit({"phase": "distributed_done", "seconds": time.perf_counter() - t0})
     emit({"phase": "launches_by_path", **paths})
 
     # -- 6. no host sync inside an engine chunk -----------------------------
@@ -2641,25 +2911,10 @@ def main(argv=None) -> int:
             return engine.run_chunk(step, carry(), cond_fn=cond, chunk=chunk,
                                     pass_gate=gated)
 
-        run()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            run()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0) / (10 * chunk)
-        dev_step = device_ms(torch, run, REPS, 100_000_000) / chunk
         # a vc_fused step is one launch of K cycles; the rest one cycle
         per = K_DEFAULT if name == "cycle[vc_fused]" else 1
-        timed.append((run, {
-            "phase": "step_timing", "loop": name, "cycles_per_step": per,
-            "host_ms_per_step": 1e3 * (t1 - t0) / (10 * chunk),
-            "wall_ms_per_step": wall, "device_ms_per_step": dev_step,
-            "host_ms_per_cycle": 1e3 * (t1 - t0) / (10 * chunk * per),
-            "wall_ms_per_cycle": wall / per,
-            "device_ms_per_cycle": dev_step / per,
-            "device_idle_share": max(0.0, 1 - dev_step / wall)}))
+        timed.append((run, {"phase": "step_timing", "loop": name,
+                            **chunk_timing(torch, run, chunk, per)}))
     # a whole global relabel from this state, as the solve runs it (one
     # host read per chunk of sweeps): its wall time per sweep
     for name, fn in (("kernel", minh_fn), ("plain", None)):

@@ -32,9 +32,10 @@ class SolverOptions:
     ``backend``
         ``single`` (one instance per solve) or ``batched`` (instances
         padded to one shape and advanced together, one kernel launch
-        per step for the whole batch; ``solve`` is a batch of one).
-        ``distributed`` is an accepted name whose solve raises
-        ``NotImplementedError`` until it is ported.
+        per step for the whole batch; ``solve`` is a batch of one) or
+        ``distributed`` (one instance range-partitioned over the ranks of
+        the default ``torch.distributed`` process group, ``mode="vc"``
+        only; raises ``NotImplementedError`` without a group).
     ``global_relabel_cadence``
         Push-relabel cycles between global relabels.  ``None`` picks the
         heuristic ``max(32, min(1024, n))``.

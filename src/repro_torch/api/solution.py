@@ -302,7 +302,9 @@ class Solution:
     ``value`` is the max-flow value (== matching size for matching
     problems, == cut capacity for min-cut problems).  Derived views are
     computed lazily from the warm-start handle's corrected residual and
-    cached.
+    cached.  The ``distributed`` backend captures no final state: its
+    Solution has ``warm_start=None`` and ``state=None``, and the views
+    raise.
 
     ``state`` is a ``PRState`` on the solve's device: for a single solve
     the final maximum *preflow* (with stranded excess at deactivated
@@ -312,7 +314,8 @@ class Solution:
     """
 
     def __init__(self, problem, value: int, stats: SolveStats,
-                 warm_start: WarmStartHandle, state: pr.PRState):
+                 warm_start: WarmStartHandle | None,
+                 state: pr.PRState | None):
         self.problem = problem
         self.value = int(value)
         self.stats = stats
@@ -322,9 +325,16 @@ class Solution:
         self._cut = None
         self._matching: np.ndarray | None = None
 
+    def _handle(self) -> WarmStartHandle:
+        if self.warm_start is None:
+            raise RuntimeError(
+                f"the {self.stats.backend!r} backend does not capture final "
+                "solver state; flows/cut/matching views are unavailable")
+        return self.warm_start
+
     def _corrected_state(self) -> tuple[WarmStartHandle, pr.PRState]:
         """The handle plus its phase-2-corrected state as a ``PRState``."""
-        h = self.warm_start
+        h = self._handle()
         res, e = h.arrays()
         return h, pr.PRState(res=res, h=np.zeros(h.residual.n, np.int32),
                              e=e)

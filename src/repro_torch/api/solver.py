@@ -5,7 +5,9 @@ batched core) and corrects it to flows in the same call, and
 ``Solver.resolve`` re-solves warm from a ``WarmStartHandle`` after
 signed capacity updates (a decrease below the routed flow is drained on
 the device first), and ``Solver.open_stream`` opens a versioned
-streaming session (``repro_torch.streaming``)."""
+streaming session (``repro_torch.streaming``).  ``backend="distributed"``
+solves on the ranks of the default ``torch.distributed`` process group
+(``repro_torch.core.distributed``)."""
 from __future__ import annotations
 
 from collections.abc import Iterable, Sequence
@@ -19,6 +21,15 @@ from repro_torch.api.solution import (Solution, SolveStats, WarmStartHandle,
 from repro_torch.core import batched
 from repro_torch.core import pushrelabel as pr
 from repro_torch.core.csr import ResidualCSR
+
+_DISTRIBUTED_GUIDANCE = (
+    "backend='distributed' solves on the ranks of a torch.distributed "
+    "process group, and none is initialised.  Launch one process per rank "
+    "with torchrun (e.g. torchrun --nproc-per-node 2 -m "
+    "repro_torch.launch.maxflow --backend distributed --device cpu "
+    "--smoke), or call torch.distributed.init_process_group first: NCCL "
+    "for the card, gloo for device='cpu'.  Or use "
+    "backend='single'/'batched'.")
 
 
 class Solver:
@@ -49,9 +60,7 @@ class Solver:
     def solve(self, problem) -> Solution:
         opts = self.options
         if opts.backend == "distributed":
-            raise NotImplementedError(
-                "backend 'distributed' is not ported yet (see ROADMAP.md "
-                "Queue 1, 'Distributed')")
+            return self._solve_distributed(problem)
         if opts.backend == "batched":
             return self.solve_many([problem])[0]
         return self._solve_single(problem, problem.residual(opts.layout))
@@ -199,6 +208,33 @@ class Solver:
             max_rounds=opts.max_rounds(r2.n), telemetry=opts.telemetry,
             max_cycles=opts.max_cycles, scan_chunk=opts.scan_chunk)
         return self._batched_solutions([problem], [r2], out, warm=True)[0]
+
+    # -- distributed --------------------------------------------------------
+
+    def _solve_distributed(self, problem) -> Solution:
+        """One solve on every rank of the default process group (each rank
+        calls it with the same problem).  The final state stays
+        partitioned on the ranks: the solution has no warm-start handle,
+        so its views raise, and no ``state``."""
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            raise NotImplementedError(_DISTRIBUTED_GUIDANCE)
+        from repro_torch.core import distributed
+
+        opts = self.options
+        r = problem.residual(opts.layout)
+        cycles = opts.global_relabel_cadence or 64
+        out = distributed.distributed_solve_impl(
+            r, problem.s, problem.t, mode="replicated", cycles=cycles,
+            device=opts.device)
+        stats = SolveStats(cycles=out.supersteps * cycles,
+                           rounds=out.supersteps,
+                           global_relabels=out.supersteps,
+                           gr_sweeps=out.gr_sweeps, backend="distributed",
+                           mode=opts.mode, layout=r.layout)
+        return Solution(problem, out.value, stats, warm_start=None,
+                        state=None)
 
     # -- streaming ----------------------------------------------------------
 

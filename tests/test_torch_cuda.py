@@ -930,3 +930,36 @@ def test_only_typed_faults_take_the_ladder_on_the_card(cuda, monkeypatch):
     assert [f.result().maxflow for f in got] == [
         dinic_maxflow(*x) for x in insts]
     assert svc.stats()["robustness"]["transient_demotions"] >= 1
+
+
+def test_distributed_nccl_matches_gloo(cuda, tmp_path):
+    """A one-rank NCCL ``solve_distributed`` on the card ends in the same
+    final ``res``/``h``/``e``, superstep count and value as the same solve
+    under gloo on the CPU, in each exchange mode, and the value is
+    Dinic's."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+
+    g, s, t = washington_rlg(24, 24, seed=3)
+    r = build_residual(g, "bcsr")
+    want = dinic_maxflow(g, s, t)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        gloo = dist.new_group(backend="gloo")
+        for mode in D.MODES:
+            got = D.distributed_solve_impl(r, s, t, mode=mode, cycles=16)
+            ref = D.distributed_solve_impl(r, s, t, gloo, mode=mode,
+                                           cycles=16, device="cpu")
+            assert got.res.is_cuda and not ref.res.is_cuda
+            assert got.value == ref.value == want
+            assert (got.supersteps, got.gr_sweeps) == (ref.supersteps,
+                                                      ref.gr_sweeps)
+            for a, b in zip(got[1:4], ref[1:4]):
+                assert a.dtype == b.dtype == torch.int32
+                assert torch.equal(a.cpu(), b)
+        with pytest.raises(ValueError, match="does not carry"):
+            D.solve_distributed(r, s, t, gloo)  # gloo with the card
+    finally:
+        dist.destroy_process_group()

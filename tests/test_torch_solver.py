@@ -108,18 +108,18 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_not_ported_yet_raises():
-    """What stays unported raises, naming its ROADMAP entry:
-    ``distributed``.  What the streaming slice ported runs, single and
-    batched, and agrees with JAX: ``open_stream``, and a capacity
-    decrease below the routed flow (drained on the device, then
-    re-solved warm)."""
+    """``distributed`` without a process group raises, naming
+    ``torchrun`` (``tests/test_torch_distributed.py`` runs it under one).
+    What the streaming slice ported runs, single and batched, and agrees
+    with JAX: ``open_stream``, and a capacity decrease below the routed
+    flow (drained on the device, then re-solved warm)."""
     from repro.api import CapacityUpdate as JUpdate
     from repro.api import MaxflowProblem as JMaxflowProblem
     from repro.api import Solver as JSolver
 
     gj, gt, s, t = _instance("genrmf")
     p = MaxflowProblem(gt, s, t)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="torchrun"):
         Solver(device="cpu", backend="distributed").solve(p)
     for backend in ("single", "batched"):
         solver = Solver(device="cpu", backend=backend)
