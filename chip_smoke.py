@@ -53,7 +53,7 @@ just before it and read just after:
   launch for the whole pool, each row bit-equal to its own drain and to
   the plain pooled drain;
 * ``stream_path`` — ``Solver(mode="vc_kernel_bsearch").open_stream`` on
-  the main graph, then 3 adversarial batches and one mixed batch with a
+  the main graph, then 2 adversarial batches and one mixed batch with a
   new arc pair (a structural rebuild around the routed flow); at every
   version the flow is feasible and its min cut has the version's value,
   and the last value equals a cold solve of the folded graph;
@@ -99,6 +99,16 @@ just before it and read just after:
   repro_torch.launch.maxflow --backend distributed`` on the 256x256
   graph (NCCL over ``env://``, the rank on ``LOCAL_RANK``'s card), its
   printed value against scipy's Dinic.
+
+Last, ``analysis`` (PR 20): ``python -m repro_torch.launch.analyze
+--device cuda --smoke`` in a process of its own runs all 25 dispatch
+surfaces under the op census and sync-debug "error", holds each one's
+kernel launches to the wrappers' counters and records whether a chunk of
+its loop replays from a CUDA graph (``capturable``); it must find 0 rule
+violations and 0 lint findings.  Then one chunk of each loop that
+``step_timing`` times runs under the census and sync-debug "error" at the
+main graph's mid-solve state, its kernel launches and aten ops a step
+held to the same chunk's on the analyzer's small fixture.
 
 Outside the chaos run no serving phase may take a rung of the service's
 degradation ladder (retries, demotions, host fallbacks, dispatch errors):
@@ -199,8 +209,9 @@ MATCHING_SIDE = {False: 131072, True: 2048}
 WARM_ARCS = 64
 WARM_DELTA = 50
 #: the streaming phases' update traces: adversarial batches (each zeroes
-#: source arcs and raises sink arcs, alternately), events a batch
-STREAM_ADVERSARIAL = 3
+#: source arcs and raises sink arcs, alternately), events a batch (2
+#: adversarial batches since PR 20, 3 before: the whole run's time)
+STREAM_ADVERSARIAL = 2
 STREAM_EVENTS = 4
 #: the serving phases: fresh instances of ``serve_path`` (the batched
 #: path's 8 graphs and the next 8 seeds), of them the first ones submitted
@@ -2054,6 +2065,103 @@ def distributed_steps(torch, dev, problem):
               "profiled_device_us_per_step": sum(ops.values())})
 
 
+#: ops whose count a step differs by between the main graph and the small
+#: fixture, each on a branch of a static shape: none so far
+STATIC_SHAPE_BRANCHES: dict[str, str] = {}
+
+
+def analysis_phase(torch, loops, minh_fn, graph):
+    """Phase ``analysis``: ``python -m repro_torch.launch.analyze --device
+    cuda --smoke`` in a process of its own (every surface's census under
+    sync-debug "error", its launches against the wrappers' counters, its
+    chunk captured into a CUDA graph), which must find 0 violations and 0
+    lint findings; then one chunk of each of ``step_timing``'s ``loops``
+    at the main graph's (``graph``) mid-solve state under the census and
+    sync-debug
+    "error", whose kernel launches a step must equal the same loops' on
+    the analysis fixture, and whose aten ops a step must too, but for ops
+    listed in ``STATIC_SHAPE_BRANCHES``."""
+    import tempfile
+    from collections import Counter
+
+    from repro_torch.analysis import baselines, surfaces
+    from repro_torch.core import engine
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "ANALYSIS_torch.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.analyze", "--device",
+             "cuda", "--smoke", "--out", str(out), "--root", str(ROOT)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        require(proc.returncode == 0,
+                f"the analyzer failed on the card:\n{proc.stdout[-3000:]}"
+                f"\n{proc.stderr[-3000:]}")
+        payload = json.loads(out.read_text())
+    summary = payload["summary"]
+    require(summary["surfaces_traced"] == 25
+            and summary["surfaces_clean"] == 25
+            and summary["rule_violations"] == 0
+            and summary["lint_findings"] == 0,
+            f"the analyzer's summary on the card: {summary}")
+    per_surface = {}
+    for name, rec in payload["surfaces"].items():
+        counts = rec["launch_counts"]
+        require(counts is not None and counts["census"] == counts["counters"],
+                f"{name}: census launches != .launches deltas: {counts}")
+        c = rec["census"]
+        per_surface[name] = {
+            "ops_per_step": c["ops_per_step"], "steps": c["loop_shape"]
+            ["steps"], "launches": c["launches"],
+            "capturable": rec["capturable"],
+            "capture_error": c["capture_error"]}
+    emit({"phase": "analysis", "what": "surfaces", "device":
+          payload["device_name"], "summary": summary,
+          "seconds": time.perf_counter() - t0, "surfaces": per_surface,
+          "baselines": payload["baselines"]})
+
+    t1 = time.perf_counter()
+    chunk = engine.DEFAULT_CHUNK
+    g, meta, state, s, t, _, _ = surfaces.single_fixture("bcsr", "cuda")
+    tiny = baselines.step_loops(g, meta, state, s, t, minh_fn)
+    rows = {}
+    for name, (step, cond, make_carry, gated) in loops.items():
+        got = {}
+        for size, (st, cd, mk, gt) in (("full", (step, cond, make_carry,
+                                                 gated)),
+                                       ("small", tiny[name])):
+            carry = mk()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got[size] = baselines.chunk_census(st, cd, carry, chunk, gt)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        full, small = got["full"], got["small"]
+        require(not full.host_calls, f"{name}: host calls in a chunk: "
+                f"{full.host_calls}")
+        require(full.launches_by_kernel() == small.launches_by_kernel(),
+                f"{name}: launches a chunk {full.launches_by_kernel()} at "
+                f"full width, {small.launches_by_kernel()} small")
+        diff = Counter(full.op_counts)
+        diff.subtract(small.op_counts)
+        diff = {op: n for op, n in diff.items() if n}
+        require(set(diff) <= set(STATIC_SHAPE_BRANCHES),
+                f"{name}: ops a chunk differ from the small fixture's "
+                f"by {diff}")
+        rows[name] = {"ops_per_step": full.ops_per_step(),
+                      "small_ops_per_step": small.ops_per_step(),
+                      "launches_per_step": full.kernel_call_count / chunk,
+                      "kernel_ops_per_step": full.kernel_op_count / chunk,
+                      "op_differences": diff}
+    emit({"phase": "analysis", "what": "full_width_chunks",
+          "graph": graph, "small": "random_sparse(24, 96, seed=7)",
+          "chunk": chunk, "loops": rows,
+          "seconds": time.perf_counter() - t1})
+    return time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2101,6 +2209,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from repro_torch.analysis import baselines
     from repro_torch.api import MaxflowProblem
     from repro_torch.core import batched, engine, globalrelabel, phase2
     from repro_torch.core import pushrelabel as pr
@@ -2890,23 +2999,13 @@ def main(argv=None) -> int:
     # every run of a loop starts from the mid-solve state; vc_fused's step
     # updates its carry in place, so each of its runs takes a copy of its
     # own, made ahead of the timed window
-    loops = {}
-    for mode in ("vc_kernel_bsearch", "vc_fused", "vc"):
-        body, cond = pr.cycle_loop(g, meta, s, t, mode, cap=2**30)
-        if mode == "vc_fused":
-            pool = iter([(pr.PRState(*(x.clone() for x in state)), zero)
-                         for _ in range(13 + REPS)])
-            loops[f"cycle[{mode}]"] = (body, cond, pool.__next__, True)
-        else:
-            loops[f"cycle[{mode}]"] = (body, cond, lambda: (state, zero),
-                                       False)
-    for name, fn in (("sweep[kernel]", minh_fn), ("sweep[plain]", None)):
-        sweep, dist0 = globalrelabel.distance_sweep(g, meta, state.res, t, fn)
-        step, cond, carry = engine.fixpoint_loop(sweep, dist0, cap=2**30)
-        loops[name] = (step, cond, lambda carry=carry: carry, False)
+    loops = baselines.step_loops(g, meta, state, s, t, minh_fn)
     chunk = engine.DEFAULT_CHUNK
     timed = []
-    for name, (step, cond, carry, gated) in loops.items():
+    for name, (step, cond, make_carry, gated) in loops.items():
+        carry = (iter([make_carry() for _ in range(13 + REPS)]).__next__
+                 if gated else make_carry)
+
         def run(step=step, cond=cond, carry=carry, gated=gated):
             return engine.run_chunk(step, carry(), cond_fn=cond, chunk=chunk,
                                     pass_gate=gated)
@@ -2930,6 +3029,10 @@ def main(argv=None) -> int:
     for run, row in timed:
         emit({**row, "top_device_us_per_step": top_device_ops(torch, run,
                                                               chunk)})
+
+    # -- 8. contract analysis: the analyzer, and chunks at full width -----
+    analysis_phase(torch, loops, minh_fn,
+                   f"washington_rlg({rows}, {cols}, seed={SEED}), mid-solve")
 
     emit({"phase": "done", "quick": args.quick,
           "seconds": time.perf_counter() - t_start})

@@ -153,8 +153,8 @@ class WarmStartHandle:
         from repro_torch.errors import HandleCorrupted
 
         r = self.residual
-        res = np.asarray(self._res, np.int64)
-        e = np.asarray(self._e, np.int64)
+        res = np.asarray(self._res, np.int64)  # lint-ok: int64-state-cast
+        e = np.asarray(self._e, np.int64)  # lint-ok: int64-state-cast
         shape_bad = []
         if res.shape != (r.num_arcs,):
             shape_bad.append(
@@ -167,7 +167,7 @@ class WarmStartHandle:
         if (res < 0).any():
             reasons.append(
                 f"negative residual on {int((res < 0).sum())} arc(s)")
-        res0 = np.asarray(r.res0, np.int64)
+        res0 = np.asarray(r.res0, np.int64)  # lint-ok: int64-state-cast
         rev = np.asarray(r.rev)
         bad_pair = (res + res[rev]) != (res0 + res0[rev])
         if bad_pair.any():

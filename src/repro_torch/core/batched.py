@@ -538,7 +538,8 @@ def batched_resolve(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
         t0 = time.perf_counter()
         state, nact, sweeps = batched_global_relabel(bg, meta, state,
                                                      minh_fn=gr_minh)
-        nact = nact.cpu().numpy()  # sync: the host loop branches on it
+        # the host loop branches on it: one read a round, between loops
+        nact = nact.cpu().numpy()  # lint-ok: host-sync
         gr_sweeps += int(sweeps)
         gr_time += time.perf_counter() - t0
         return state, nact
@@ -558,9 +559,11 @@ def batched_resolve(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
                                  budget=remaining, chunk=scan_chunk)
         state = out[0]
         if telemetry:
-            counts += np.stack([x.cpu().numpy() for x in out[2][:4]]
+            counts += np.stack([x.cpu().numpy()  # lint-ok: host-sync
+                                for x in out[2][:4]]
                                ).astype(np.int64)
-        cyc = out[1].cpu().numpy().astype(np.int64)
+        # the round's counts, read once after its loop
+        cyc = out[1].cpu().numpy().astype(np.int64)  # lint-ok: host-sync
         cycles += cyc
         rounds += live
         if remaining is not None:
@@ -580,9 +583,10 @@ def batched_resolve(bg: BatchedDeviceGraph, meta, state: BatchedPRState,
     else:
         raise RuntimeError("batched push-relabel did not converge "
                            "within max_rounds")
-    e = state.e.cpu().numpy()
-    t = bg.t.cpu().numpy()
-    maxflows = e[np.arange(B), t].astype(np.int64)
+    # the result, read once the rounds are done (host int64 values)
+    e = state.e.cpu().numpy()  # lint-ok: host-sync
+    t = bg.t.cpu().numpy()  # lint-ok: host-sync
+    maxflows = e[np.arange(B), t].astype(np.int64)  # lint-ok: int64-state-cast
     maxflows[trivial] = 0
     return BatchedSolveResult(
         maxflows=maxflows, cycles=cycles, rounds=rounds, global_relabels=grs,
@@ -671,7 +675,7 @@ def check_phase2_leftover(leftover) -> None:
     """Raise if any batch lane could not drain its excess (invalid preflow)."""
     left = pr.host_array(leftover)
     if left.any():
-        bad = np.nonzero(left)[0].tolist()
+        bad = np.nonzero(left)[0].tolist()  # lint-ok: host-sync (numpy)
         raise RuntimeError(
             f"phase 2 could not drain excess on batch lanes {bad} — the "
             "states are not valid preflows (excess must be flow-connected "
@@ -744,7 +748,7 @@ def apply_capacity_increases(r: ResidualCSR, res: np.ndarray,
     ``ValueError`` for negative deltas (not warm-startable: reducing
     capacity below routed flow creates deficits push-relabel cannot drain).
     """
-    res = np.asarray(res, np.int64).copy()
+    res = np.asarray(res, np.int64).copy()  # lint-ok: int64-state-cast
     res0 = r.res0.copy()
     for u, v, delta in updates:
         if delta < 0:

@@ -41,6 +41,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.kernels.runtime import census_loop, census_step
+
 __all__ = ["DEFAULT_CHUNK", "normalize_chunk", "run_chunk", "run_bulk_loop",
            "fill_at", "fixpoint_loop", "run_to_fixpoint", "resolve_minh_fn"]
 
@@ -74,6 +76,7 @@ def _gate(live: torch.Tensor, new: Any, old: Any) -> Any:
 
 def _step(step_fn: Callable, carry: Any, live: torch.Tensor,
           pass_gate: bool) -> Any:
+    census_step()
     return step_fn(carry, live) if pass_gate else step_fn(carry)
 
 
@@ -97,17 +100,18 @@ def run_bulk_loop(step_fn: Callable, carry: Any, *,
     of the condition per chunk.  Semantically identical to a per-step
     while loop (see the module docstring).  Returns the final carry."""
     chunk = normalize_chunk(chunk)
-    while True:
-        live = cond_fn(carry)
-        if not bool(live):  # the one host read per chunk
-            return carry
-        if chunk == 1:
-            # the outer check already guards this step exactly: its gate
-            # is open
-            carry = _step(step_fn, carry, live, pass_gate)
-        else:
-            carry = run_chunk(step_fn, carry, cond_fn=cond_fn, chunk=chunk,
-                              pass_gate=pass_gate)
+    with census_loop(chunk, step_fn, cond_fn, carry, pass_gate):
+        while True:
+            live = cond_fn(carry)
+            if not bool(live):  # the one host read per chunk
+                return carry
+            if chunk == 1:
+                # the outer check already guards this step exactly: its
+                # gate is open
+                carry = _step(step_fn, carry, live, pass_gate)
+            else:
+                carry = run_chunk(step_fn, carry, cond_fn=cond_fn,
+                                  chunk=chunk, pass_gate=pass_gate)
 
 
 def fill_at(x: torch.Tensor, i: int, value) -> torch.Tensor:

@@ -62,7 +62,8 @@ def min_cut(r: ResidualCSR, state: pr.PRState, s: int, t: int,
     # b out of w whose reverse rev[b] (into w) has residual
     dist, _ = gr.residual_distances_impl(g, meta, res_d[g.rev], s,
                                          minh_fn=minh_fn)
-    reach = (dist < INF).cpu().numpy()
+    # the cut is a host result: one read after the sweeps' loop
+    reach = (dist < INF).cpu().numpy()  # lint-ok: host-sync
     if reach[t]:  # not an assert: must survive python -O
         raise RuntimeError(
             "sink is residually reachable from the source — the state is "
@@ -70,7 +71,7 @@ def min_cut(r: ResidualCSR, state: pr.PRState, s: int, t: int,
     heads, tails = np.asarray(r.heads), np.asarray(r.tails)
     crossing = np.nonzero(reach[tails] & ~reach[heads])[0]
     value = int(np.asarray(r.res0)[crossing].sum()
-                - res[crossing].astype(np.int64).sum())
+                - res[crossing].astype(np.int64).sum())  # lint-ok: int64-state-cast
     return MinCut(value=value, source_side=reach,
                   cut_arcs=crossing.astype(np.int64))
 

@@ -326,4 +326,5 @@ def convert_preflow_to_flow_device(r: ResidualCSR, state: pr.PRState,
             f"phase 2 could not drain {left} units of excess back "
             "to the source — the state is not a valid preflow for this "
             "graph (excess must be flow-connected to s)")
-    return res.cpu().numpy().astype(np.int64)
+    # the host entry point's result, after the drain's loops
+    return res.cpu().numpy().astype(np.int64)  # lint-ok: host-sync, int64-state-cast

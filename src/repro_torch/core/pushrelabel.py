@@ -539,7 +539,8 @@ def solve_impl(r: ResidualCSR, s: int, t: int, mode: str = "vc",
             stats.pushes += int(tel.pushes)
             stats.relabels += int(tel.relabels)
             hists.append(tuple(
-                h[:c].cpu().numpy().astype(np.int64)
+                # telemetry histories (not state), read once a round
+                h[:c].cpu().numpy().astype(np.int64)  # lint-ok: host-sync, int64-state-cast
                 for h in (tel.active_hist, tel.frontier_hist,
                           tel.maxdeg_hist)))
         stats.cycles += c
@@ -574,7 +575,8 @@ def solve_impl(r: ResidualCSR, s: int, t: int, mode: str = "vc",
 
 def host_array(x) -> np.ndarray:
     """A numpy view of a state array, from a tensor on any device."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return (x.cpu().numpy()  # lint-ok: host-sync (host callers only)
+            if isinstance(x, torch.Tensor) else np.asarray(x))
 
 
 def convert_preflow_to_flow(r: ResidualCSR, state: PRState, s: int,

@@ -37,7 +37,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.runtime import check_operand
+from repro_torch.kernels.runtime import census_launch, check_operand
 
 #: discharge cycles fused into one launch by default (the ``vc_fused``
 #: drivers clamp this to the cycle budget)
@@ -119,24 +119,26 @@ def fused_discharge_batched_(s, t, indptr, heads, rev, res, h, e, *, n: int,
     ``counters=True``, all views into the scratch."""
     bsz, _ = _check(s, t, indptr, heads, rev, res, h, e, n, k, gate, scratch)
     dev = res.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
     if scratch is None:
         scratch = discharge_scratch(bsz, n, k, dev)
-    if dev.type == "cpu":
-        return fused_discharge_batched_plain_(
-            s, t, indptr, heads, rev, res, h, e, n=n, k=k, gate=gate,
-            scratch=scratch, counters=counters)
-    if dev.type == "cuda":
-        fn = build.entry("discharge", "fused_discharge_launch")
-        with torch.cuda.device(dev):
-            code = fn(*(x.data_ptr() for x in (s, t, indptr, heads, rev, res,
-                                               h, e)),
-                      None if gate is None else gate.data_ptr(),
-                      *(x.data_ptr() for x in scratch), bsz, n, res.shape[1],
-                      k, torch.cuda.current_stream(dev).cuda_stream)
-        build.check(code, "fused_discharge_batched")
-        fused_discharge_batched.launches += 1
-    else:
-        raise ValueError(f"unsupported device {dev}")
+    with census_launch("fused_discharge_batched", bsz, n):
+        if dev.type == "cpu":
+            fused_discharge_batched_plain_(
+                s, t, indptr, heads, rev, res, h, e, n=n, k=k, gate=gate,
+                scratch=scratch)
+        else:
+            fn = build.entry("discharge", "fused_discharge_launch")
+            with torch.cuda.device(dev):
+                code = fn(*(x.data_ptr() for x in (s, t, indptr, heads, rev,
+                                                   res, h, e)),
+                          None if gate is None else gate.data_ptr(),
+                          *(x.data_ptr() for x in scratch), bsz, n,
+                          res.shape[1], k,
+                          torch.cuda.current_stream(dev).cuda_stream)
+            build.check(code, "fused_discharge_batched")
+            fused_discharge_batched.launches += 1
     return _outputs(scratch, counters)
 
 

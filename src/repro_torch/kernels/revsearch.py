@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.runtime import check_operand
+from repro_torch.kernels.runtime import census_launch, check_operand
 
 
 def search_steps(deg_max: int) -> int:
@@ -49,19 +49,21 @@ def bcsr_rev_search(arcs: torch.Tensor, indptr: torch.Tensor,
     check_operand("heads", heads, lead + (a,), arcs.device)
     check_operand("tails", tails, lead + (a,), arcs.device)
     steps = search_steps(deg_max)
-    if arcs.device.type == "cpu":
-        return kref.rev_search_bsearch_ref(arcs, indptr, heads, tails,
-                                           steps=steps)
-    if arcs.device.type != "cuda":
+    if arcs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {arcs.device}")
-    out = torch.empty_like(arcs)
-    fn = build.entry("revsearch", "bcsr_rev_search_launch")
-    with torch.cuda.device(arcs.device):
-        code = fn(arcs.data_ptr(), indptr.data_ptr(), heads.data_ptr(),
-                  tails.data_ptr(), out.data_ptr(),
-                  lead[0] if lead else 1, arcs.shape[-1], n, a, steps,
-                  torch.cuda.current_stream(arcs.device).cuda_stream)
-    build.check(code, "bcsr_rev_search")
+    rows = lead[0] if lead else 1
+    with census_launch("bcsr_rev_search", rows, arcs.shape[-1]):
+        if arcs.device.type == "cpu":
+            return kref.rev_search_bsearch_ref(arcs, indptr, heads, tails,
+                                               steps=steps)
+        out = torch.empty_like(arcs)
+        fn = build.entry("revsearch", "bcsr_rev_search_launch")
+        with torch.cuda.device(arcs.device):
+            code = fn(arcs.data_ptr(), indptr.data_ptr(), heads.data_ptr(),
+                      tails.data_ptr(), out.data_ptr(), rows, arcs.shape[-1],
+                      n, a, steps,
+                      torch.cuda.current_stream(arcs.device).cuda_stream)
+        build.check(code, "bcsr_rev_search")
     bcsr_rev_search.launches += 1
     return out
 

@@ -6,10 +6,46 @@ runs on the card unless the caller asks for the CPU: ``device=None`` means
 CUDA and raises when no card is visible.  There is no silent CPU
 fallback; the CPU (where each kernel wrapper takes its plain PyTorch
 version) has to be asked for by name, as the tests do.
+
+It also holds the census hooks of ``repro_torch.analysis.ir``: every
+kernel entry brackets its launch (or its plain version) in
+:func:`census_launch`, and the sweep engine reports each loop
+(:func:`census_loop`) and each step (:func:`census_step`).  While no
+census records, each hook costs one check of a module global.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+#: the census recording this process's dispatches, set only by
+#: ``repro_torch.analysis.ir`` while it records; ``None`` otherwise
+_census = None
+_NO_CENSUS = contextlib.nullcontext()
+
+
+def census_launch(symbol: str, rows: int, q: int | None):
+    """Bracket one kernel launch: ``symbol`` over ``rows`` instances and
+    a queue of ``q`` entries (``None``: the dense form).  Ops dispatched
+    inside the bracket are the kernel's body, not its caller's."""
+    if _census is None:
+        return _NO_CENSUS
+    return _census.launch(symbol, rows, q)
+
+
+def census_loop(chunk: int, step_fn, cond_fn, carry, pass_gate: bool):
+    """Bracket one engine loop run in chunks of ``chunk`` steps from
+    ``carry`` (the loop's arguments, for a census that replays a chunk)."""
+    if _census is None:
+        return _NO_CENSUS
+    return _census.loop(chunk, step_fn, cond_fn, carry, pass_gate)
+
+
+def census_step() -> None:
+    """Mark the start of one engine step."""
+    if _census is not None:
+        _census.step()
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

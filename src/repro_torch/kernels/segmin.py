@@ -31,7 +31,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.revsearch import search_steps
-from repro_torch.kernels.runtime import check_operand
+from repro_torch.kernels.runtime import census_launch, check_operand
 
 INF = kref.INF
 
@@ -51,6 +51,16 @@ def _launch(symbol, avq, indptr, arrays, *, lead, q, n, a, dev, outputs=2,
                   n, a, *ints, torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, symbol)
     return outs
+
+
+def _rows(lead: tuple) -> int:
+    """Instances in one launch: the batch of ``(B, ·)`` rows, else 1."""
+    return lead[0] if lead else 1
+
+
+def _q(avq, q: int) -> int | None:
+    """A launch's queue length for the census; ``None``: the dense form."""
+    return None if avq is None else q
 
 
 def _check(avq, indptr, arcs, n):
@@ -80,10 +90,11 @@ def tile_min_neighbor(avq: torch.Tensor | None, indptr: torch.Tensor,
     ``(minh, argarc)`` of shape ``(Q,)`` / ``(B, Q)``."""
     lead, q, a, dev = _check(avq, indptr, key, n)
     check_operand("key", key, lead + (a,), dev)
-    if dev.type == "cpu":
-        return tile_min_neighbor_plain(avq, indptr, key, n=n)
-    out = _launch("tile_min_neighbor_launch", avq, indptr, (key,),
-                  lead=lead, q=q, n=n, a=a, dev=dev)
+    with census_launch("tile_min_neighbor", _rows(lead), _q(avq, q)):
+        if dev.type == "cpu":
+            return tile_min_neighbor_plain(avq, indptr, key, n=n)
+        out = _launch("tile_min_neighbor_launch", avq, indptr, (key,),
+                      lead=lead, q=q, n=n, a=a, dev=dev)
     tile_min_neighbor.launches += 1
     if avq is None:
         tile_min_neighbor.dense_launches += 1
@@ -107,10 +118,12 @@ def tile_min_neighbor_gather(avq: torch.Tensor | None, indptr: torch.Tensor,
     check_operand("res", res, lead + (a,), dev)
     check_operand("heads", heads, lead + (a,), dev)
     check_operand("h", h, lead + (n,), dev)
-    if dev.type == "cpu":
-        return tile_min_neighbor_gather_plain(avq, indptr, heads, res, h, n=n)
-    out = _launch("tile_min_neighbor_gather_launch", avq, indptr,
-                  (heads, res, h), lead=lead, q=q, n=n, a=a, dev=dev)
+    with census_launch("tile_min_neighbor_gather", _rows(lead), _q(avq, q)):
+        if dev.type == "cpu":
+            return tile_min_neighbor_gather_plain(avq, indptr, heads, res, h,
+                                                  n=n)
+        out = _launch("tile_min_neighbor_gather_launch", avq, indptr,
+                      (heads, res, h), lead=lead, q=q, n=n, a=a, dev=dev)
     tile_min_neighbor_gather.launches += 1
     if avq is None:
         tile_min_neighbor_gather.dense_launches += 1
@@ -144,12 +157,13 @@ def tile_min_neighbor_gather_rev(avq: torch.Tensor, indptr: torch.Tensor,
     check_operand("tails", tails, lead + (a,), dev)
     check_operand("h", h, lead + (n,), dev)
     steps = search_steps(deg_max)
-    if dev.type == "cpu":
-        return tile_min_neighbor_gather_rev_plain(avq, indptr, heads, tails,
-                                                  res, h, n=n, steps=steps)
-    out = _launch("tile_min_neighbor_gather_rev_launch", avq, indptr,
-                  (heads, tails, res, h), lead=lead, q=q, n=n, a=a, dev=dev,
-                  outputs=3, ints=(steps,))
+    with census_launch("tile_min_neighbor_gather_rev", _rows(lead), q):
+        if dev.type == "cpu":
+            return tile_min_neighbor_gather_rev_plain(
+                avq, indptr, heads, tails, res, h, n=n, steps=steps)
+        out = _launch("tile_min_neighbor_gather_rev_launch", avq, indptr,
+                      (heads, tails, res, h), lead=lead, q=q, n=n, a=a,
+                      dev=dev, outputs=3, ints=(steps,))
     tile_min_neighbor_gather_rev.launches += 1
     return out
 

@@ -104,8 +104,8 @@ def prepare_signed(r: ResidualCSR, res: np.ndarray, e: np.ndarray,
     for a missing arc and ``ValueError`` for a capacity driven below
     zero.  Preparations from many independent streams can then be pooled
     into one device drain (``drain_prepared``)."""
-    res0 = np.asarray(r.res0, np.int64).copy()
-    res = np.asarray(res, np.int64).copy()
+    res0 = np.asarray(r.res0, np.int64).copy()  # lint-ok: int64-state-cast
+    res = np.asarray(res, np.int64).copy()  # lint-ok: int64-state-cast
     b = np.zeros(r.n, np.int64)
     inc_total = 0
     overflow = 0
@@ -133,7 +133,8 @@ def prepare_signed(r: ResidualCSR, res: np.ndarray, e: np.ndarray,
     b[s] = 0  # the source absorbs/supplies freely; never an imbalance
     return PreparedReroute(
         residual=dataclasses.replace(r, res0=res0), res=res, b=b,
-        e=np.asarray(e, np.int64).copy(), s=s, t=t, old_value=int(e[t]),
+        e=np.asarray(e, np.int64).copy(),  # lint-ok: int64-state-cast
+        s=s, t=t, old_value=int(e[t]),
         inc_total=inc_total, overflow=overflow)
 
 
@@ -288,6 +289,14 @@ def apply_signed_batched(items, use_kernel: bool = False,
 # device side: deficit drain (phase 2's mirror) + excess drain (phase 2)
 # ---------------------------------------------------------------------------
 
+def _dist0(sink: torch.Tensor) -> torch.Tensor:
+    """The starting distances of a multi-sink sweep: 0 on the set, INF
+    elsewhere, made in int32 (an int64 ``where`` narrowed afterwards
+    would leave the int32 lattice)."""
+    return torch.full(sink.shape, INF, dtype=_I32,
+                      device=sink.device).masked_fill_(sink, 0)
+
+
 def _multi_sink_sweep(g, meta, fres, sink, minh_fn=None):
     """``(sweep, dist0)``: one Bellman-Ford sweep toward the vertex *set*
     ``sink`` (a boolean mask) over ``fres``-positive arcs, and the
@@ -300,7 +309,7 @@ def _multi_sink_sweep(g, meta, fres, sink, minh_fn=None):
     def sweep(dist):
         return torch.where(sink, 0, torch.minimum(dist, cand(dist)))
 
-    return sweep, torch.where(sink, 0, INF).to(_I32)
+    return sweep, _dist0(sink)
 
 
 def _multi_sink_distances(g, meta, fres, sink, minh_fn=None):
@@ -320,7 +329,7 @@ def _batched_multi_sink_sweep(g, meta, fres, sink, minh_fn=None):
     def sweep(dist):
         return torch.where(sink, 0, torch.minimum(dist, cand(dist)))
 
-    return sweep, torch.where(sink, 0, INF).to(_I32)
+    return sweep, _dist0(sink)
 
 
 def _batched_multi_sink_distances(g, meta, fres, sink, minh_fn=None):

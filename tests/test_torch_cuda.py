@@ -963,3 +963,44 @@ def test_distributed_nccl_matches_gloo(cuda, tmp_path):
             D.solve_distributed(r, s, t, gloo)  # gloo with the card
     finally:
         dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def card_analysis():
+    """One run of the contract analyzer on the card, shared by the tests
+    below."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import pathlib
+
+    from repro_torch.launch.analyze import run_analysis
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    return run_analysis(repo_root=root, device="cuda")
+
+
+def test_analyzer_on_the_card_is_clean(card_analysis):
+    """Every surface's census under sync-debug "error" breaks no rule, and
+    the port's tree has no lint finding."""
+    s = card_analysis["summary"]
+    bad = {name: rec["violations"]
+           for name, rec in card_analysis["surfaces"].items()
+           if not rec["ok"]}
+    assert not bad
+    assert (s["surfaces_traced"], s["surfaces_clean"], s["rule_violations"],
+            s["lint_findings"]) == (25, 25, 0, 0)
+
+
+def test_census_launches_equal_the_counters(card_analysis):
+    """On every surface, and every kernel surface launching something,
+    the census's kernel launches equal the wrappers' ``.launches``
+    deltas."""
+    launched = 0
+    for name, rec in card_analysis["surfaces"].items():
+        counts = rec["launch_counts"]
+        assert counts["census"] == counts["counters"], name
+        if rec["tags"].get("kernel") == "True" or rec["tags"].get(
+                "mode", "vc") not in ("vc", "tc"):
+            assert counts["census"], f"{name} launched no kernel"
+            launched += 1
+    assert launched == 13

@@ -17,7 +17,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 #: the card-only tests run where JAX is not installed
-SOURCES = sorted(PORT.rglob("*.py")) + [SMOKE,
+SOURCES = sorted(PORT.rglob("*.py")) + [SMOKE, ROOT / "chip_steptime.py",
                                         ROOT / "tests" / "test_torch_cuda.py"]
 
 
