@@ -53,9 +53,10 @@ just before it and read just after:
   launch for the whole pool, each row bit-equal to its own drain and to
   the plain pooled drain;
 * ``stream_path`` — ``Solver(mode="vc_kernel_bsearch").open_stream`` on
-  the main graph, then 2 adversarial batches and one mixed batch with a
-  new arc pair (a structural rebuild around the routed flow); at every
-  version the flow is feasible and its min cut has the version's value,
+  the main graph, then one adversarial batch, which must overflow the
+  routed flow, and one mixed batch with a new arc pair (a structural
+  rebuild around the routed flow); at every version the flow is feasible
+  and its min cut has the version's value,
   and the last value equals a cold solve of the folded graph;
 * ``serve_path`` — ``MaxflowService(ServiceConfig(mode="vc_fused",
   max_batch=8))``, the batched path's graphs and 8 more as one serving
@@ -110,6 +111,20 @@ violations and 0 lint findings.  Then one chunk of each loop that
 main graph's mid-solve state, its kernel launches and aten ops a step
 held to the same chunk's on the analyzer's small fixture.
 
+Then the capacity, dry-run and example phases: ``overflow`` — the
+instances the int32 state cannot hold (a capacity of 2^33, a source
+out-capacity of 2^32 - 2, a negative capacity) refused with
+``OverflowError`` / ``ValueError`` through ``Solver.solve``, single and
+batched, in every mode, and through ``MaxflowService.submit``, and an
+instance exactly at the bound solved to Dinic's value on the card;
+``dryrun`` — ``python -m repro_torch.launch.dryrun --all --both-meshes``:
+its 12 graph cells (2 scales x 16x16 and 2x16x16 x 3 exchanges) one after
+another in a process of its own, each one rank of the mesh on the card
+under a fake process group, every record's meta that of its cell, its
+collective bytes those of its shapes' formulas, no kernel launched;
+``examples`` — the three max-flow examples
+on the card, each verified against Dinic.
+
 Outside the chaos run no serving phase may take a rung of the service's
 degradation ladder (retries, demotions, host fallbacks, dispatch errors):
 a kernel that failed to build or launch would hide there.
@@ -151,6 +166,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -209,9 +225,10 @@ MATCHING_SIDE = {False: 131072, True: 2048}
 WARM_ARCS = 64
 WARM_DELTA = 50
 #: the streaming phases' update traces: adversarial batches (each zeroes
-#: source arcs and raises sink arcs, alternately), events a batch (2
-#: adversarial batches since PR 20, 3 before: the whole run's time)
-STREAM_ADVERSARIAL = 2
+#: source arcs and raises sink arcs, alternately; each must overflow the
+#: routed flow), events a batch (one adversarial batch: the stream's
+#: depth is what is cut to keep the whole run's time)
+STREAM_ADVERSARIAL = 1
 STREAM_EVENTS = 4
 #: the serving phases: fresh instances of ``serve_path`` (the batched
 #: path's 8 graphs and the next 8 seeds), of them the first ones submitted
@@ -240,7 +257,15 @@ ROW_PATH = {"tile_min_neighbor_gather[avq]": "vc_kernel",
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``t_s``, the seconds since
+    the script started, so that the gaps between phases show."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
+
+
+#: the script's start, for ``emit``'s ``t_s``
+T_START = time.perf_counter()
 
 
 def require(ok: bool, what: str) -> None:
@@ -933,29 +958,59 @@ def check_version(sol, s, t):
     return int(cut.cut_arcs.size)
 
 
-def stream_path(torch, problem):
-    """Phase ``stream_path``: a streaming session on the main graph in the
-    paper-faithful mode, through the adversarial batches and one mixed
-    batch with a new arc pair; every version checked by
-    :func:`check_version`, the last against a cold solve of the folded
-    graph."""
-    from repro_torch.api import MaxflowProblem, Solver
+def timed_call(fn, *args, **kw):
+    """``(fn(*args, **kw), seconds)``: how the set-up pool's work is
+    timed."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, time.perf_counter() - t0
+
+
+def batch_graphs(size):
+    """The batched path's instances, ``washington_rlg(*size)`` with seeds
+    ``SEED``, ``SEED + 1``, ...: made in the set-up pool."""
+    from repro_torch.graphs.generators import washington_rlg
+
+    return [washington_rlg(*size, seed=SEED + i) for i in range(BATCH)]
+
+
+def stream_inputs(graph, s, t):
+    """The streaming phase's host inputs, made in the set-up pool while
+    the card works: the adversarial batches and the mixed one, the graph
+    they fold to (for the cold check), and the seconds of each."""
     from repro_torch.graphs.generators import (apply_events_to_graph,
                                                update_trace)
-    from repro_torch.obs import REGISTRY, TRACER
-    from repro_torch.streaming import stream
 
-    graph, s, t = problem.graph, problem.s, problem.t
     t0 = time.perf_counter()
     batches = update_trace(graph, s, t, n_batches=STREAM_ADVERSARIAL,
                            batch_size=STREAM_EVENTS, adversarial=True,
                            seed=SEED)
-    gen_adv = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    batches += update_trace(graph, s, t, n_batches=1,
+                            batch_size=STREAM_EVENTS, p_insert=0.5,
+                            p_delete=0.0, seed=SEED)
+    t2 = time.perf_counter()
+    folded = apply_events_to_graph(graph, batches)
+    return batches, folded, {"trace_gen_adversarial_s": t1 - t0,
+                             "trace_gen_mixed_s": t2 - t1,
+                             "fold_s": time.perf_counter() - t2}
+
+
+def stream_path(torch, problem, inputs):
+    """Phase ``stream_path``: a streaming session on the main graph in the
+    paper-faithful mode, through the adversarial batches and one mixed
+    batch with a new arc pair (``inputs``, the pending result of
+    :func:`stream_inputs`); every version checked by
+    :func:`check_version`, the last against a cold solve of the folded
+    graph."""
+    from repro_torch.api import MaxflowProblem, Solver
+    from repro_torch.obs import REGISTRY, TRACER
+    from repro_torch.streaming import stream
+
+    s, t = problem.s, problem.t
     t0 = time.perf_counter()
-    mixed = update_trace(graph, s, t, n_batches=1, batch_size=STREAM_EVENTS,
-                         p_insert=0.5, p_delete=0.0, seed=SEED)
-    gen_mixed = time.perf_counter() - t0
-    batches += mixed
+    batches, folded, setup_s = inputs.get()
+    wait_s = time.perf_counter() - t0
 
     class Recording(Solver):
         """Keeps the last warm re-solve's solution, for its cycles."""
@@ -979,8 +1034,9 @@ def stream_path(torch, problem):
     _, wall_check, _ = driven(torch, lambda: check_version(sg.query(0), s, t))
     emit({"phase": "stream_version", "version": 0, "value": sg.query(0).value,
           "wall_s": wall_open, "launches": launches_open,
-          "check_wall_s": wall_check, "trace_gen_adversarial_s": gen_adv,
-          "trace_gen_mixed_s": gen_mixed})
+          "check_wall_s": wall_check, "setup_wait_s": wait_s,
+          "trace_gen_adversarial_s": setup_s["trace_gen_adversarial_s"],
+          "trace_gen_mixed_s": setup_s["trace_gen_mixed_s"]})
     counters = ("stream.reroute.overflow_units",
                 "stream.reroute.drained_units")
     value = None
@@ -1021,16 +1077,13 @@ def stream_path(torch, problem):
                   "rerouted": bool(solver.last and solver.last.stats.rerouted),
                   "launches": launches, "check_wall_s": wall_check,
                   "cut_arcs": cut_arcs})
-            if i == 0:
-                require(over > 0, "the first adversarial batch overflowed "
+            if i < STREAM_ADVERSARIAL:
+                require(over > 0, f"adversarial batch {i + 1} overflowed "
                         "nothing")
     finally:
         stream.rebuild_with_state = rebuild
     require(sg.stats()["structural_rebuilds"] == 1 and len(rebuild_s) == 1,
             f"the mixed batch made no structural rebuild: {sg.stats()}")
-    t0 = time.perf_counter()
-    folded = apply_events_to_graph(graph, batches)
-    fold_s = time.perf_counter() - t0
     fp = MaxflowProblem(folded, s, t)
     t0 = time.perf_counter()
     fp.residual("bcsr")
@@ -1040,16 +1093,19 @@ def stream_path(torch, problem):
     require(cold.value == value, f"the stream's last value {value} != a "
             f"cold solve of the folded graph {cold.value}")
     emit({"phase": "stream_path", "ok": True, "versions": len(batches) + 1,
-          "stats": sg.stats(), "rebuild_s": rebuild_s, "fold_s": fold_s,
+          "stats": sg.stats(), "rebuild_s": rebuild_s,
+          "fold_s": setup_s["fold_s"],
           "folded_csr_s": csr_s, "cold_value": cold.value,
           "cold_wall_s": wall_cold, "cold_cycles": cold.stats.cycles})
     sg.close()
     return {"stream_open": launches_open}
 
 
-def views_and_modes(quick, small, torch, problem, batch, ctx, paths):
-    """The phases of phase 2, the views, ``tc`` and streaming, each driven
-    with the launch counts set to 0 just before it and read just after."""
+def views_and_modes(quick, small, torch, problem, batch, ctx, paths,
+                    stream_in):
+    """The phases of phase 2, the views, ``tc`` and streaming (its inputs
+    ``stream_in`` pending in the set-up pool), each driven with the launch
+    counts set to 0 just before it and read just after."""
     paths.update(tc_path(torch, ctx, batch))
     paths.update(phase2_path(torch, problem, ctx))
     batched_phase2(torch, ctx)
@@ -1057,7 +1113,7 @@ def views_and_modes(quick, small, torch, problem, batch, ctx, paths):
     paths.update(warm_path(torch, ctx))
     paths.update(drain_kernel_vs_plain(torch, problem, ctx))
     paths.update(pooled_drain(torch, ctx))
-    paths.update(stream_path(torch, problem))
+    paths.update(stream_path(torch, problem, stream_in))
 
 
 def drain_loops(torch, ctx, minh_fn) -> dict:
@@ -1789,9 +1845,9 @@ def serve_launcher(torch, quick, pool):
             "serve_launcher[chaos]": launches_c}
 
 
-def serving(torch, quick, bgraphs, oracles_b, pool):
-    """The serving phases, each driven with the launch counts set to 0
-    just before it and read just after."""
+def serve_graphs(quick):
+    """The serving phases' fresh instances, made in the set-up pool while
+    the card works: ``(extra, policy, seconds)``."""
     from repro_torch.graphs.generators import washington_rlg
 
     bsize, psize = SIZES[quick][2], POLICY_SIZE[quick]
@@ -1800,7 +1856,18 @@ def serving(torch, quick, bgraphs, oracles_b, pool):
              for i in range(SERVE_FRESH - BATCH)]
     policy = [washington_rlg(*psize, seed=SEED + i)
               for i in range(POLICY_INSTANCES)]
-    emit({"phase": "serve_graphs", "gen_s": time.perf_counter() - t0,
+    return extra, policy, time.perf_counter() - t0
+
+
+def serving(torch, quick, bgraphs, oracles_b, pool, graphs_in):
+    """The serving phases (their fresh instances ``graphs_in`` pending in
+    the set-up pool), each driven with the launch counts set to 0 just
+    before it and read just after."""
+    bsize, psize = SIZES[quick][2], POLICY_SIZE[quick]
+    t0 = time.perf_counter()
+    extra, policy, gen_s = graphs_in.get()
+    emit({"phase": "serve_graphs", "gen_s": gen_s,
+          "setup_wait_s": time.perf_counter() - t0,
           "serve_path": f"washington_rlg({bsize[0]}, {bsize[1]}, "
           f"seed={SEED}..{SEED + SERVE_FRESH - 1})",
           "serve_policy": f"washington_rlg({psize[0]}, {psize[1]}, "
@@ -2162,12 +2229,204 @@ def analysis_phase(torch, loops, minh_fn, graph):
     return time.perf_counter() - t0
 
 
+#: the instances the int32 lattice cannot hold, ``(n, edges, caps)`` from
+#: 0 to n - 1, and the error each entry must raise: a capacity past
+#: int32, an out-capacity of the source past it, a negative capacity
+OVERFLOW_GRAPHS = {
+    "capacity_2**33": (3, [[0, 1], [1, 2]], [2**33, 5], "OverflowError"),
+    "source_out_2**32-2": (4, [[0, 1], [0, 2], [1, 3], [2, 3]],
+                           [2**31 - 1] * 4, "OverflowError"),
+    "negative": (3, [[0, 1], [1, 2]], [-1, 5], "ValueError"),
+}
+#: an instance exactly at the bound: source out-capacity 2**31 - 1
+AT_BOUND = (4, [[0, 1], [0, 2], [1, 3], [2, 3]],
+            [2**30, 2**30 - 1, 2**31 - 1, 2**31 - 1])
+
+
+def overflow_phase(torch, problems):
+    """Phase ``overflow``: each of ``OVERFLOW_GRAPHS`` raises its error
+    through ``Solver.solve`` on the card, single and batched, in every
+    mode, and through ``MaxflowService.submit`` (before any flush); and
+    ``AT_BOUND`` solves on the card to Dinic's value in every mode, single
+    and batched, its flows and min cut agreeing.  Also the host time of
+    one check on each of ``problems`` (name -> problem; median of 5): a
+    served instance is checked at submit and again in each flush that
+    packs it."""
+    import numpy as np
+
+    from repro_torch.api import MaxflowProblem, Solver
+    from repro_torch.core import pushrelabel as pr
+    from repro_torch.core.csr import Graph
+    from repro_torch.core.ref_maxflow import dinic_maxflow
+    from repro_torch.serving import MaxflowService, ServiceConfig
+
+    def graph(n, edges, caps):
+        return Graph(n, np.array(edges, np.int64), np.array(caps, np.int64))
+
+    modes = pr.ALL_MODES
+    refused = {}
+    for name, (n, edges, caps, err) in OVERFLOW_GRAPHS.items():
+        g = graph(n, edges, caps)
+        problem = MaxflowProblem(g, 0, n - 1)
+        calls = {f"{b}/{m}": (lambda b=b, m=m: Solver(backend=b, mode=m)
+                              .solve(problem))
+                 for b in ("single", "batched") for m in modes}
+        calls["service.submit"] = lambda g=g, n=n: MaxflowService(
+            ServiceConfig(mode="vc_fused")).submit(g, 0, n - 1)
+        for what, call in calls.items():
+            try:
+                call()
+            except (OverflowError, ValueError) as exc:
+                require(type(exc).__name__ == err,
+                        f"{name} via {what}: {type(exc).__name__}, not {err}")
+            else:
+                raise AssertionError(f"{name} via {what} did not raise {err}")
+        refused[name] = {"error": err, "entries": len(calls)}
+    g = graph(*AT_BOUND)
+    problem = MaxflowProblem(g, 0, g.n - 1)
+    want = dinic_maxflow(g, 0, g.n - 1)
+    values = {}
+    for b in ("single", "batched"):
+        for m in modes:
+            sol = Solver(backend=b, mode=m).solve(problem)
+            require(sol.state.res.is_cuda, f"at the bound, {b}/{m} ran off "
+                    "the card")
+            require(sol.value == want == sol.min_cut().value,
+                    f"at the bound, {b}/{m} gives {sol.value}, Dinic {want}")
+            values[f"{b}/{m}"] = sol.value
+    check_ms = {}
+    for name, p_ in problems.items():
+        r = p_.residual("bcsr")
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pr.check_capacity_range(r, p_.s)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        check_ms[name] = {"arcs": r.num_arcs,
+                          "median_ms": statistics.median(walls)}
+    emit({"phase": "overflow", "refused": refused, "at_bound_dinic": want,
+          "at_bound_values": values, "check_host_ms": check_ms})
+
+
+def dryrun_phase(torch, smi):
+    """Phase ``dryrun``: ``python -m repro_torch.launch.dryrun --all
+    --both-meshes --fresh`` on the card in a process of its own, its 12
+    cells (2 graph scales x 2 production meshes x 3 exchanges) one after
+    another, each one rank of the mesh under a fake process group.  One
+    line a record, with the card's name and power limit; each record's
+    meta must be the cell's, its step's and sweep's by-op collective bytes
+    those of the collectives' formulas for its shapes, no kernel launched,
+    and its device times taken on the card."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as SH
+    from repro_torch.launch.mesh import production_mesh
+
+    out_dir = ROOT / "experiments" / "dryrun_torch"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+           "--both-meshes", "--fresh", "--out-dir", str(out_dir)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    errs = {p.name: p.read_text()[-2000:] for p in out_dir.glob("*.err")}
+    require(proc.returncode == 0,
+            f"the dry run failed (rc {proc.returncode}): {proc.stdout[-2000:]}"
+            f" {proc.stderr[-2000:]} {errs}")
+    cfg = registry.get_config("wbpr-maxflow")
+    n_rec = 0
+    for cell in SH.cells_for(cfg):
+        for mp in (False, True):
+            mesh = production_mesh(mp)
+            for mode in dryrun.GRAPH_MODES:
+                path = out_dir / dryrun.record_name(
+                    "wbpr-maxflow", cell.name, mesh.tag, mode)
+                require(path.exists(), f"no dry-run record {path.name}")
+                rec = json.loads(path.read_text())
+                meta, shapes = dryrun._graph_specs(cell, mesh, mode)
+                require(rec["meta"] == dataclasses.asdict(meta)
+                        and rec["shard_shapes"] == {
+                            k: list(v) for k, v in shapes.items()}
+                        and rec["devices"] == mesh.size,
+                        f"{path.name}: meta {rec['meta']} is not the cell's")
+                want = dryrun.expected_collectives(meta)
+                for it in ("step", "gr_sweep"):
+                    got = rec["per_iter"][it]
+                    require(got["collectives"]["by_op"] == want[it],
+                            f"{path.name}: {it} collectives "
+                            f"{got['collectives']['by_op']} != {want[it]}")
+                    require(got["launches"] == 0,
+                            f"{path.name}: the {it} launched a kernel")
+                    require(got["device_ms"] is not None,
+                            f"{path.name}: no device time for the {it}")
+                require(rec["full"]["kernel_launches"] == 0,
+                        f"{path.name}: the cell launched a kernel")
+                require(rec["device"] == "cuda",
+                        f"{path.name} ran on {rec['device']}")
+                mem = rec["full"]["memory"]
+                step, sweep = rec["per_iter"]["step"], rec["per_iter"][
+                    "gr_sweep"]
+                print(f"{smi} | {path.stem}: state {mem['state_bytes']} B, "
+                      f"peak {mem['peak_allocated_bytes']} B; step "
+                      f"{step['device_ms']} ms ({step['aten_ops']} ops, "
+                      f"{step['collectives']['total_bytes']} B wire); sweep "
+                      f"{sweep['device_ms']} ms; superstep "
+                      f"{rec['full']['superstep']['wall_s']} s", flush=True)
+                emit({"phase": "dryrun_record", "record": path.name,
+                      "nvidia_smi": smi, "memory": mem,
+                      "superstep": rec["full"]["superstep"],
+                      "step": rec["per_iter"]["step"],
+                      "gr_sweep": rec["per_iter"]["gr_sweep"],
+                      "extrapolated": rec["extrapolated"],
+                      "active_on_rank": rec["graph"]["active_on_rank"]})
+                n_rec += 1
+    emit({"phase": "dryrun", "records": n_rec, "wall_s": wall,
+          "cells": proc.stdout.strip().splitlines()})
+
+
+#: the max-flow examples, each verifying itself against Dinic
+EXAMPLES = ("quickstart_torch.py", "bipartite_matching_torch.py",
+            "serve_maxflow_torch.py")
+
+
+def examples_phase():
+    """Phase ``examples``: each of ``EXAMPLES`` on the card (its default
+    device), in a process of its own, exits 0 having verified itself.
+    They time nothing, so the three run at once."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            require(proc.returncode == 0 and "verified" in out
+                    and "cuda" in out,
+                    f"examples/{name} failed on the card (rc "
+                    f"{proc.returncode}): {out[-1500:]} {err[-2000:]}")
+            emit({"phase": "examples", "example": name,
+                  "wall_s": time.perf_counter() - t0,
+                  "last_lines": out.strip().splitlines()[-2:]})
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="rehearse on small graphs; prints no result")
     args = ap.parse_args(argv)
-    (rows, cols), small, bsize = SIZES[args.quick]
+    (rows, cols), _, bsize = SIZES[args.quick]
 
     import torch
 
@@ -2180,6 +2439,24 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
+    from repro_torch.graphs.generators import washington_rlg
+
+    # the main graph and the batch's are made in a set-up pool while the
+    # device starts and the kernels build; the same pool later makes the
+    # streaming and serving phases' host inputs; leaving the block
+    # terminates both processes
+    with multiprocessing.get_context("spawn").Pool(2) as setup:
+        made = {"main": setup.apply_async(
+                    timed_call, (washington_rlg, rows, cols), {"seed": SEED}),
+                "batch": setup.apply_async(
+                    timed_call, (batch_graphs, bsize))}
+        return smoke(args, torch, t_start, setup, made)
+
+
+def smoke(args, torch, t_start, setup, made) -> int:
+    """Every phase, in order, with ``setup`` the set-up pool and ``made``
+    its pending main and batch graphs."""
+    (rows, cols), small, bsize = SIZES[args.quick]
 
     # -- 1. device ----------------------------------------------------------
     smi = subprocess.run(
@@ -2546,8 +2823,8 @@ def main(argv=None) -> int:
 
     # -- 4. the main path at full size --------------------------------------
     t0 = time.perf_counter()
-    graph, s, t = washington_rlg(rows, cols, seed=SEED)
-    t_gen = time.perf_counter() - t0
+    (graph, s, t), t_gen = made["main"].get()
+    t_wait = time.perf_counter() - t0
     t0 = time.perf_counter()
     problem = MaxflowProblem(graph, s, t)
     r = problem.residual("bcsr")
@@ -2555,9 +2832,10 @@ def main(argv=None) -> int:
     emit({"phase": "main_graph", "graph": f"washington_rlg({rows}, "
           f"{cols}, seed={SEED})", "n": r.n, "edges": graph.m,
           "arcs": r.num_arcs, "deg_max": r.deg_max, "gen_s": t_gen,
-          "csr_s": t_csr})
+          "setup_wait_s": t_wait, "csr_s": t_csr})
     t0 = time.perf_counter()
-    bgraphs = [washington_rlg(*bsize, seed=SEED + i) for i in range(BATCH)]
+    bgraphs, t_bgen = made["batch"].get()
+    t_bwait = time.perf_counter() - t0
     batch = [MaxflowProblem(*bg_) for bg_ in bgraphs]
     for p_ in batch:
         p_.residual("bcsr")
@@ -2565,11 +2843,16 @@ def main(argv=None) -> int:
           f"{bsize[1]}, seed={SEED}..{SEED + BATCH - 1})",
           "n": [p_.residual("bcsr").n for p_ in batch],
           "arcs": [p_.residual("bcsr").num_arcs for p_ in batch],
-          "gen_s": time.perf_counter() - t0})
+          "gen_s": t_bgen, "setup_wait_s": t_bwait,
+          "csr_s": time.perf_counter() - t0 - t_bwait})
     # scipy's Dinic takes minutes at the main graph's size: it runs in a
     # process of its own while the card solves, and a second process
-    # solves the batched instances; leaving the block terminates both
+    # solves the batched instances; the set-up pool makes the streaming
+    # and serving phases' host inputs meanwhile; leaving the block
+    # terminates both oracle processes
     with multiprocessing.get_context("spawn").Pool(2) as pool:
+        stream_in = setup.apply_async(stream_inputs, (graph, s, t))
+        graphs_in = setup.apply_async(serve_graphs, (args.quick,))
         oracles = [pool.apply_async(scipy_maxflow, (graph.n, graph.edges,
                                                     graph.cap, s, t))]
         oracles += [pool.apply_async(scipy_maxflow, (g_.n, g_.edges, g_.cap,
@@ -2577,9 +2860,11 @@ def main(argv=None) -> int:
                     for g_, s_, t_ in bgraphs]
         paths, ctx = main_path_and_modes(small, torch, problem, batch,
                                          oracles)
-        views_and_modes(args.quick, small, torch, problem, batch, ctx, paths)
+        views_and_modes(args.quick, small, torch, problem, batch, ctx, paths,
+                        stream_in)
         want = main_oracle(ctx, oracles[0])
-        paths.update(serving(torch, args.quick, bgraphs, oracles[1:], pool))
+        paths.update(serving(torch, args.quick, bgraphs, oracles[1:], pool,
+                             graphs_in))
     # -- 5c. the distributed backend, on a one-rank NCCL group ---------------
     t0 = time.perf_counter()
     paths.update(distributed_path(torch, problem, batch[0], bsize[0], want,
@@ -3033,6 +3318,16 @@ def main(argv=None) -> int:
     # -- 8. contract analysis: the analyzer, and chunks at full width -----
     analysis_phase(torch, loops, minh_fn,
                    f"washington_rlg({rows}, {cols}, seed={SEED}), mid-solve")
+
+    # -- 9. capacities outside int32, the dry run, the examples -----------
+    checked = {f"washington_rlg({rows}, {cols})": problem,
+               f"washington_rlg({bsize[0]}, {bsize[1]})": batch[0]}
+    for name, phase in (("overflow", lambda: overflow_phase(torch, checked)),
+                        ("dryrun", lambda: dryrun_phase(torch, smi)),
+                        ("examples", examples_phase)):
+        t0 = time.perf_counter()
+        phase()
+        emit({"phase": f"{name}_done", "seconds": time.perf_counter() - t0})
 
     emit({"phase": "done", "quick": args.quick,
           "seconds": time.perf_counter() - t_start})

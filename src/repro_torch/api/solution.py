@@ -254,8 +254,10 @@ class WarmStartHandle:
         the defensive case that the drain stalls (the handle did not hold
         a corrected flow); callers then cold-solve.  Raises ``KeyError``
         for a missing arc (structural changes are the streaming tier's
-        ``rebuild_with_state``) and ``ValueError`` for a capacity driven
-        below zero."""
+        ``rebuild_with_state``), ``ValueError`` for a capacity driven
+        below zero and ``OverflowError`` for an increase that takes an arc
+        pair's capacity or the source's out-capacity past ``2**31 - 1``;
+        on each the handle stays as it was."""
         from repro_torch.streaming import reroute
 
         rr = reroute.drain_prepared([self.prepare_updates(updates)],
@@ -271,13 +273,18 @@ class WarmStartHandle:
         (``reroute.drain_prepared``); :meth:`finish_updates` turns each
         drained result back into the ``(residual, warm)`` pair ``apply``
         returns.  Raises exactly what ``apply`` raises (missing arc,
-        capacity below zero)."""
+        capacity below zero, an increase past the int32 bound)."""
         ups = _normalize_updates(updates)
         from repro_torch.streaming import reroute
 
         res, e = self.arrays()
-        return reroute.prepare_signed(self.residual, res, e, self.s,
-                                      self.t, ups)
+        prep = reroute.prepare_signed(self.residual, res, e, self.s, self.t,
+                                      ups)
+        if prep.inc_total:
+            # an increase past the int32 bound raises here, before the
+            # handle or any drain sees it
+            pr.check_capacity_range(prep.residual, self.s)
+        return prep
 
     def finish_updates(self, rr) -> tuple[ResidualCSR, tuple | None]:
         """Fold a drained ``reroute.RerouteResult`` back into the

@@ -7,7 +7,16 @@ signed capacity updates (a decrease below the routed flow is drained on
 the device first), and ``Solver.open_stream`` opens a versioned
 streaming session (``repro_torch.streaming``).  ``backend="distributed"``
 solves on the ranks of the default ``torch.distributed`` process group
-(``repro_torch.core.distributed``)."""
+(``repro_torch.core.distributed``).
+
+Every entry refuses capacities the int32 state cannot hold before
+anything is packed (``pushrelabel.check_capacity_range``):
+``OverflowError`` for an arc pair or a source out-capacity above
+``2**31 - 1``, ``ValueError`` for a negative capacity.  ``solve`` checks
+on the single backend; the batched and distributed backends check where
+they pack (``batched.pack_instances``, ``distributed.partition_graph``);
+``resolve`` checks its increases in ``WarmStartHandle.apply``, which
+leaves the handle as it was."""
 from __future__ import annotations
 
 from collections.abc import Iterable, Sequence
@@ -67,6 +76,7 @@ class Solver:
 
     def _solve_single(self, problem, r: ResidualCSR) -> Solution:
         opts = self.options
+        pr.check_capacity_range(r, problem.s)
         out = pr.solve_impl(
             r, problem.s, problem.t, mode=opts.mode,
             cycle_chunk=opts.global_relabel_cadence,

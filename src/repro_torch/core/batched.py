@@ -143,7 +143,7 @@ def _pad_instance(r: ResidualCSR, n_pad: int, A_pad: int, trivial: bool):
     tails[:A] = r.tails
     rev[:A] = r.rev
     if not trivial:
-        res0[:A] = r.res0
+        res0[:A] = pr.as_int32(r.res0, "res0")
     return indptr, heads, tails, rev, res0
 
 
@@ -163,6 +163,10 @@ def pack_instances(instances: list[tuple[ResidualCSR, int, int]],
     segments — ``"batched-bcsr"`` vs plain ``"batched"`` — which is what
     licenses the binary-search reverse lookup; ``batched_run_cycles``
     rejects ``mode='vc_kernel_bsearch'`` on an unsorted pack.
+
+    Every instance's capacities are checked first
+    (``pushrelabel.check_capacity_range``): one the int32 state cannot
+    hold raises before anything is packed.
     """
     if not instances:
         raise ValueError("empty batch")
@@ -170,6 +174,8 @@ def pack_instances(instances: list[tuple[ResidualCSR, int, int]],
     n_pad = n_pad or max(max(r.n for r, _, _ in instances), 2)
     A_pad = A_pad or max(max(r.num_arcs for r, _, _ in instances), 1)
     deg_max = deg_max or max(max(r.deg_max for r, _, _ in instances), 1)
+    for r, s, _ in instances:
+        pr.check_capacity_range(r, s)
     cols = [[] for _ in range(5)]
     ns, As, ss, ts, triv = [], [], [], [], []
     for r, s, t in instances:
@@ -747,6 +753,10 @@ def apply_capacity_increases(r: ResidualCSR, res: np.ndarray,
     caller must fall back to a cold solve on a rebuilt CSR) and
     ``ValueError`` for negative deltas (not warm-startable: reducing
     capacity below routed flow creates deficits push-relabel cannot drain).
+    It raises ``OverflowError`` when the increases take an arc pair's
+    capacity past the int32 bound (``pushrelabel.check_arc_pairs``), and
+    leaves ``r`` and ``res`` as they were; the source's out-capacity is
+    checked where the result is packed for a solve (``pack_instances``).
     """
     res = np.asarray(res, np.int64).copy()  # lint-ok: int64-state-cast
     res0 = r.res0.copy()
@@ -756,4 +766,6 @@ def apply_capacity_increases(r: ResidualCSR, res: np.ndarray,
         a = find_arc(r, u, v)
         res[a] += delta
         res0[a] += delta
-    return dataclasses.replace(r, res0=res0), res
+    r2 = dataclasses.replace(r, res0=res0)
+    pr.check_arc_pairs(r2)
+    return r2, res

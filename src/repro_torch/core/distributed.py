@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import engine
+from repro_torch.core import pushrelabel as pr
 from repro_torch.core.csr import ResidualCSR
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ref import INF
@@ -80,10 +81,12 @@ def partition_graph(r: ResidualCSR, nshards: int, s: int, t: int,
     Arc global ids are re-indexed slab-major: shard w, slot k -> w*amax+k.
     Returns ``(slabs, meta, res0)``: a ``DistGraph`` of numpy rows per
     rank, byte for byte the rows of the reference's ``(P, ·)`` arrays,
-    and the ``(P*amax,)`` int32 initial residual."""
+    and the ``(P*amax,)`` int32 initial residual.  Capacities the int32
+    state cannot hold raise first (``pushrelabel.check_capacity_range``)."""
     if mode not in MODES:
         raise ValueError(f"unknown exchange mode {mode!r}; expected one of "
                          f"{MODES}")
+    pr.check_capacity_range(r, s)
     n0 = r.n
     vs = -(-n0 // nshards)
     n = vs * nshards
@@ -119,7 +122,7 @@ def partition_graph(r: ResidualCSR, nshards: int, s: int, t: int,
              for w in range(nshards)]
     meta = DistMeta(n=n, num_arcs=nshards * amax, vs=vs, amax=amax,
                     nshards=nshards, s=s, t=t, mode=mode)
-    return slabs, meta, res0.astype(np.int32).reshape(-1)
+    return slabs, meta, pr.as_int32(res0, "res0").reshape(-1)
 
 
 def host_preflow(slabs, meta: DistMeta, res0: np.ndarray):

@@ -85,6 +85,57 @@ def as_int32(x, what: str) -> np.ndarray:
     return arr.astype(np.int32)
 
 
+#: the largest value of the int32 state lattice
+INT32_MAX = int(np.iinfo(np.int32).max)
+
+
+def check_arc_pairs(r: ResidualCSR) -> None:
+    """Refuse a negative capacity (``ValueError``), or an arc pair whose
+    forward plus backward capacity (``res0[a] + res0[rev[a]]``, which
+    bounds every residual of the pair) exceeds ``2**31 - 1``
+    (``OverflowError``).  Host int64 work; the half of
+    :func:`check_capacity_range` that needs no source."""
+    res0 = np.asarray(r.res0, np.int64)  # lint-ok: int64-state-cast (host)
+    if not res0.size:
+        return
+    if res0.min() < 0:
+        a = int(np.argmin(res0))
+        raise ValueError(
+            f"res0: negative capacity {int(res0[a])} on arc "
+            f"{int(r.tails[a])}->{int(r.heads[a])}: capacities must be >= 0")
+    # one arc past the bound already breaks its pair's; checked first so
+    # that the pair sums below cannot overflow int64
+    if res0.max() > INT32_MAX:
+        a = int(np.argmax(res0))
+    else:
+        pair = res0 + res0[np.asarray(r.rev)]
+        a = int(np.argmax(pair)) if pair.max() > INT32_MAX else -1
+    if a >= 0:
+        b = int(r.rev[a])
+        raise OverflowError(
+            f"res0: arc pair {int(r.tails[a])}<->{int(r.heads[a])} holds "
+            f"capacity {int(res0[a]) + int(res0[b])} in its two directions, "
+            f"above the int32 bound {INT32_MAX} on every residual")
+
+
+def check_capacity_range(r: ResidualCSR, s: int) -> None:
+    """Refuse, at admission, capacities the int32 state lattice cannot
+    hold for the whole solve (the README's dtype contract).
+
+    Works in int64 on the host, before anything is packed.  Raises what
+    :func:`check_arc_pairs` raises, and ``OverflowError`` when the
+    source's out-capacity (which bounds every excess and the value)
+    exceeds ``2**31 - 1``.  The reference wraps such values silently; the
+    port refuses them on every backend."""
+    check_arc_pairs(r)
+    res0 = np.asarray(r.res0, np.int64)  # lint-ok: int64-state-cast (host)
+    out = int(res0[np.asarray(r.tails) == s].sum())
+    if out > INT32_MAX:
+        raise OverflowError(
+            f"res0: the source {s} has out-capacity {out}, above the int32 "
+            f"bound {INT32_MAX} on every excess and the max-flow value")
+
+
 def to_device(r: ResidualCSR, device=None
               ) -> tuple[DeviceGraph, GraphMeta, torch.Tensor]:
     """The residual's arrays as int32 tensors on ``device`` (``None`` = the

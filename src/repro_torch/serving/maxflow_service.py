@@ -77,6 +77,7 @@ import numpy as np
 
 from repro_torch.api.solution import WarmStartHandle
 from repro_torch.core import batched
+from repro_torch.core import pushrelabel as pr
 from repro_torch.core.csr import Graph, ResidualCSR, build_residual
 from repro_torch.core.pushrelabel import ALL_MODES, KERNEL_MODES
 from repro_torch.core.ref_maxflow import dinic_residual_flow
@@ -302,9 +303,12 @@ class MaxflowService:
         ``deadline_s`` (relative to now) bounds how long the request may
         wait: expired requests are shed before dispatch and their futures
         raise ``DeadlineExceeded``.  Raises ``Overloaded`` when the
-        target bucket's queue is full (``ServiceConfig.max_queue``) and
+        target bucket's queue is full (``ServiceConfig.max_queue``),
         ``DeadlineExceeded(where='admission')`` for a non-positive
-        deadline."""
+        deadline, and ``OverflowError`` / ``ValueError`` for capacities
+        the int32 state cannot hold / negative ones
+        (``pushrelabel.check_capacity_range``), here and not in a flush.
+        ``resubmit`` refuses an increase past the bound the same way."""
         self.n_submitted += 1
         graph_id = canonical_graph_key(graph, s, t, self.config.layout)
         deadline_at = self._admit_deadline(graph_id, deadline_s)
@@ -312,6 +316,7 @@ class MaxflowService:
         if fut is not None:
             return fut
         r = build_residual(graph, self.config.layout)
+        pr.check_capacity_range(r, s)  # refused here, never in a flush
         if s == t or r.num_arcs == 0 or r.deg_max == 0:
             # trivial instance: answer (and cache) without a dispatch
             self.results.put(CacheEntry(

@@ -128,7 +128,11 @@ class StreamingGraph:
         The base is always the latest version (updates chain linearly).
         Raises ``KeyError`` for a delete/re-weight of a missing arc,
         ``ValueError`` for empty event sets, self-loops, out-of-range
-        vertices or capacities driven below zero.
+        vertices or capacities driven below zero, and ``OverflowError``
+        for an increase or insert that takes an arc pair's capacity or the
+        source's out-capacity past ``2**31 - 1`` (raised by
+        ``Solver.resolve``'s ``WarmStartHandle.apply``); on each the
+        stream keeps its versions as they were.
         """
         self._check_open()
         base = self._chain.get(self._chain.latest)

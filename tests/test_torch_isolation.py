@@ -16,9 +16,12 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+#: the port's examples, scripts that run on import
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
 #: the card-only tests run where JAX is not installed
 SOURCES = sorted(PORT.rglob("*.py")) + [SMOKE, ROOT / "chip_steptime.py",
-                                        ROOT / "tests" / "test_torch_cuda.py"]
+                                        ROOT / "tests" / "test_torch_cuda.py",
+                                        *EXAMPLES]
 
 
 def _module_name(path: pathlib.Path) -> str:
@@ -55,7 +58,8 @@ def test_importing_everything_loads_no_jax_and_no_repro():
     modules = [_module_name(p) for p in sorted(PORT.rglob("*.py"))]
     # chip_smoke's own imports (function-local ones too), then the script
     # itself as a module: importing it does not run it
-    modules += sorted({n for n in _imported_names(SMOKE)
+    modules += sorted({n for path in (SMOKE, *EXAMPLES)
+                       for n in _imported_names(path)
                        if n.split(".")[0] != "__future__"})
     code = (
         "import importlib, json, runpy, sys\n"
@@ -70,3 +74,6 @@ def test_importing_everything_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "repro_torch.core.pushrelabel" in modules  # the walk saw it
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+            "repro_torch.configs.registry"} <= set(modules)
+    assert len(EXAMPLES) == 3
