@@ -24,10 +24,10 @@ just before it and read just after:
   ``solve_many`` corrects its batch to flows (phase 2), so the kernel
   modes launch both forms of the min search's gather entry;
 * ``tc_path`` — ``Solver(mode="tc")`` on ``washington_rlg(256, 256)``
-  against plain ``vc`` bit for bit, and batched on the 8 instances
-  against batched ``vc`` and Dinic, launching no kernel (the
-  thread-centric scan is plain PyTorch; at 1024 x 1024 it would gather
-  about 1G lanes a cycle);
+  against plain ``vc`` bit for bit, and batched on 2 of ``serve_policy``'s
+  ``washington_rlg(32, 32)`` against batched ``vc`` on the same 2 and
+  Dinic, launching no kernel (the thread-centric scan is plain PyTorch;
+  at 1024 x 1024 it would gather about 1G lanes a cycle);
 * ``phase2_path`` — the main path's solution corrected by its handle
   (phase 2 on the gather entry's dense and AVQ forms), bit-equal to the
   plain phase 2 on the card, its flows conserved, its min cut of the max
@@ -53,11 +53,12 @@ just before it and read just after:
   launch for the whole pool, each row bit-equal to its own drain and to
   the plain pooled drain;
 * ``stream_path`` — ``Solver(mode="vc_kernel_bsearch").open_stream`` on
-  the main graph, then one adversarial batch, which must overflow the
-  routed flow, and one mixed batch with a new arc pair (a structural
-  rebuild around the routed flow); at every version the flow is feasible
-  and its min cut has the version's value,
-  and the last value equals a cold solve of the folded graph;
+  ``washington_rlg(512, 512)``, then one adversarial batch, which must
+  overflow the routed flow, and one mixed batch with a new arc pair (a
+  structural rebuild around the routed flow); at every version the flow
+  is feasible and its min cut has the version's value, and the first and
+  last values equal scipy's Dinic on the graph and on the folded graph
+  (both computed in the set-up pool while the card works);
 * ``serve_path`` — ``MaxflowService(ServiceConfig(mode="vc_fused",
   max_batch=8))``, the batched path's graphs and 8 more as one serving
   bucket: 16 fresh requests (2 more coalesced) in 2 flushes, 4 cached
@@ -65,8 +66,8 @@ just before it and read just after:
   of two, 2 flow-carrying source arcs zeroed on two) whose first
   admission corrects the first flush in one pooled phase 2 (each step
   one launch for the group), riding one flush; every value against
-  scipy's Dinic; on the card, bit for bit, the cold rows against the
-  plain ``batched.batched_solve_impl`` (``vc``) on the bucket's shapes,
+  scipy's Dinic; on the card, bit for bit, the first flush's cold rows
+  against the plain ``batched.batched_solve_impl`` on the bucket's shapes,
   the correction against the plain ``batched_phase2`` and the
   decreases' drains (on the gather entry) against the plain drain;
 * ``serve_streams`` — 4 streams on the same service opened on cached
@@ -74,7 +75,7 @@ just before it and read just after:
   entry) and a mixed batch with a new arc pair on 2, each drain against
   the plain drain, each version checked as in ``stream_path`` and the
   last against scipy's Dinic on the folded graph;
-* ``serve_policy`` — ``mode="auto"`` on 20 ``washington_rlg(128, 128)``:
+* ``serve_policy`` — ``mode="auto"`` on 20 ``washington_rlg(32, 32)``:
   4 trial flushes and one pinned, each kernel mode's flush launching its
   kernels (its rows bit for bit the plain ``batched_solve_impl``'s) and
   the ``vc`` flush none;
@@ -85,21 +86,23 @@ just before it and read just after:
   every served value against scipy's Dinic, every error typed and every
   injected dispatch fault counted;
 * ``distributed_path`` — ``Solver(backend="distributed", mode="vc",
-  global_relabel_cadence=1024).solve(...)`` on the main graph over a
-  one-rank NCCL group opened in this process, its value against scipy's
-  Dinic; ``solve_distributed``'s three exchanges (``replicated``,
-  ``sharded``, ``sparse``) on ``washington_rlg(256, 256)``, each against
-  Dinic and all ending in the same state and superstep count.  The path
-  has no kernel (its min search is the plain one, as in the reference),
-  so every launch count must stay 0; one engine chunk of steps in each
-  exchange and one of relabel sweeps must run without a host sync, and
-  each is timed a step with its costliest device operations (the NCCL
+  global_relabel_cadence=64).solve(...)`` on the batched path's first
+  ``washington_rlg(256, 256)`` over a one-rank NCCL group opened in this
+  process, its value against scipy's Dinic;
+  ``solve_distributed``'s three exchanges (``replicated``, ``sharded``,
+  ``sparse``) on ``washington_rlg(128, 128)``, each against Dinic and all
+  ending in the same state and superstep count.  The path has no kernel
+  (its min search is the plain one, as in the reference), so every
+  launch count must stay 0; on the main graph, one engine chunk of steps
+  in each exchange and one of relabel sweeps must run without a host
+  sync, and each is timed a step with its costliest device operations (the NCCL
   kernels among them), beside the all-reduce of MIN alone and a sweep
-  with its all-reduce stubbed out; then the launcher's card branch,
+  with its all-reduce stubbed out; the launcher's card branch,
   ``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
-  repro_torch.launch.maxflow --backend distributed`` on the 256x256
+  repro_torch.launch.maxflow --backend distributed`` on the 128x128
   graph (NCCL over ``env://``, the rank on ``LOCAL_RANK``'s card), its
-  printed value against scipy's Dinic.
+  printed value against scipy's Dinic, runs later beside the analyzer
+  and the examples.
 
 Last, ``analysis`` (PR 20): ``python -m repro_torch.launch.analyze
 --device cuda --smoke`` in a process of its own runs all 25 dispatch
@@ -110,6 +113,12 @@ violations and 0 lint findings.  Then one chunk of each loop that
 ``step_timing`` times runs under the census and sync-debug "error" at the
 main graph's mid-solve state, its kernel launches and aten ops a step
 held to the same chunk's on the analyzer's small fixture.
+
+The analyzer, the torchrun launcher and the three examples each run in
+a process of their own and time nothing, so they run at once, beside
+the full-width chunks and ``overflow``; the dry run times the card and
+runs alone after them.  A process of their own that outlives
+``SUBPROCESS_TIMEOUT`` seconds fails the run.
 
 Then the capacity, dry-run and example phases: ``overflow`` — the
 instances the int32 state cannot hold (a capacity of 2^33, a source
@@ -124,6 +133,19 @@ under a fake process group, every record's meta that of its cell, its
 collective bytes those of its shapes' formulas, no kernel launched;
 ``examples`` — the three max-flow examples
 on the card, each verified against Dinic.
+
+Right after the kernels' edge cases, while the set-up pool makes the
+graphs, ``lm_serve``, the language-model path
+(``repro_torch.launch.lm_serve_checks``): qwen3-4b at full width and depth
+in bf16 (4,022,468,096 parameters, each leaf of its spec's shape and
+dtype), served through ``python -m repro_torch.launch.serve --arch
+qwen3-4b --batch 4 --prompt-len 2048 --tokens 32 --census`` (prefill wall,
+decode ms per token, tokens/s, peak bytes, the aten ops of a decode step;
+the decode loop under sync-debug "error"); the same weights in float32
+with TF32 off, the flash-prefilled last logits against the train
+forward's and 32 decode steps against one teacher-forced naive forward
+over the 2080 tokens; and 2 layers at full width on the card against the
+CPU.  It launches none of the kernels.
 
 Outside the chaos run no serving phase may take a rung of the service's
 degradation ladder (retries, demotions, host fallbacks, dispatch errors):
@@ -176,6 +198,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -197,6 +220,21 @@ SIZES = {False: ((1024, 1024), (256, 256), (256, 256)),
          True: ((128, 128), (64, 64), (32, 32))}
 #: instances of the batched path (seeds SEED, SEED + 1, ...)
 BATCH = 8
+#: instances of the batched ``tc`` solve, the first ones of
+#: ``serve_policy``'s (its thread-centric scan is the run's slowest
+#: batched solve for its size)
+TC_BATCH = 2
+#: (rows, cols) of the mid-size graph that the streaming session runs
+#: on, and of the distributed exchanges' and the torchrun launcher's
+#: graph: the full run and ``--quick``
+MID_SIZE = {False: (512, 512), True: (64, 64)}
+DIST_SIZE = {False: (128, 128), True: (32, 32)}
+#: steps a superstep of every distributed solve: the backend's default
+#: (the reference's); with a global relabel that often a solve converges
+#: in far fewer steps, and a step costs the host more than a sweep
+DIST_CADENCE = 64
+#: seconds a subprocess phase may take before it is killed and fails
+SUBPROCESS_TIMEOUT = 240
 #: the batched path's modes
 BATCH_MODES = ("vc_fused", "vc_kernel_bsearch", "vc")
 #: the kernels' launch counters, by the name the ``kernels`` line uses:
@@ -245,11 +283,11 @@ SERVE_STREAMS = 4
 SERVE_MIXED = 2
 #: ``serve_policy``'s instances (rows, cols) and count, full run and
 #: ``--quick``, and its ``max_batch``: 5 flushes of one bucket
-POLICY_SIZE = {False: (128, 128), True: (16, 16)}
+POLICY_SIZE = {False: (32, 32), True: (16, 16)}
 POLICY_INSTANCES = 20
 POLICY_BATCH = 4
 #: ``serve_launcher``'s requests: the ``auto`` run and the chaos run
-LAUNCHER_REQUESTS = {False: 48, True: 16}
+LAUNCHER_REQUESTS = {False: 24, True: 16}
 CHAOS_REQUESTS = {False: 32, True: 16}
 #: the path whose launches each kernel's row reports (the rest: "main")
 ROW_PATH = {"tile_min_neighbor_gather[avq]": "vc_kernel",
@@ -571,22 +609,26 @@ def flow_divergence(r, flows):
     return div
 
 
-def tc_path(torch, ctx, batch):
-    """Phase ``tc_path``: the thread-centric baseline on the small graph
-    and on the batched path's instances, no kernel, against plain ``vc``
-    and scipy's Dinic."""
-    from repro_torch.api import Solver
+def tc_path(torch, ctx):
+    """Phase ``tc_path``: the thread-centric baseline on the small graph,
+    and batched on ``TC_BATCH`` of ``serve_policy``'s instances (made in
+    the set-up pool, ``ctx["serve_in"]``), no kernel, against plain
+    ``vc`` (batched on the same instances) and scipy's Dinic."""
+    from repro_torch.api import MaxflowProblem, Solver
 
     tc, wall, launches = driven(torch, lambda: Solver(mode="tc").solve(
         ctx["p_small"]))
     require(not any(launches.values()), "tc launched a kernel")
     same_solution(torch, tc, ctx["v_small"], "tc vs vc")
+    _, policy, _, want_policy, _, _ = ctx["serve_in"].get()
+    sub = [MaxflowProblem(*x) for x in policy[:TC_BATCH]]
     tcb, wall_b, launches_b = driven(torch, lambda: Solver(
-        backend="batched", mode="tc").solve_many(batch))
+        backend="batched", mode="tc").solve_many(sub))
     require(not any(launches_b.values()), "batched tc launched a kernel")
-    for i, (a, b) in enumerate(zip(tcb, ctx["sols"]["vc"])):
+    vcb = Solver(backend="batched", mode="vc").solve_many(sub)
+    for i, (a, b) in enumerate(zip(tcb, vcb)):
         same_solution(torch, a, b, f"batched tc vs vc [{i}]")
-    require([x.value for x in tcb] == ctx["batch_values"],
+    require([x.value for x in tcb] == want_policy[:TC_BATCH],
             "batched tc values != scipy Dinic")
     cyc_b = [x.stats.cycles for x in tcb]
     emit({"phase": "tc_path", "value": tc.value, "cycles": tc.stats.cycles,
@@ -692,18 +734,19 @@ def scipy_matching(bp):
     return size, time.perf_counter() - t0
 
 
-def matching_path(torch, quick):
+def matching_path(torch, quick, made):
     """Phase ``matching_path``: a bipartite matching through the
-    paper-faithful mode, against scipy's Hopcroft-Karp."""
+    paper-faithful mode, against scipy's Hopcroft-Karp; its graph
+    ``made`` in the set-up pool (pending :func:`timed_call` of
+    ``bipartite_random``)."""
     import numpy as np
 
     from repro_torch.api import MatchingProblem, Solver
-    from repro_torch.graphs.generators import bipartite_random
 
     side = MATCHING_SIDE[quick]
     t0 = time.perf_counter()
-    bp = bipartite_random(side, side, avg_deg=8.0, seed=SEED)
-    gen_s = time.perf_counter() - t0
+    bp, gen_s = made.get()
+    wait_s = time.perf_counter() - t0
     mp = MatchingProblem(bp)
     r = mp.residual("bcsr")
     sol, wall, launches = driven(torch, lambda: Solver(
@@ -724,7 +767,8 @@ def matching_path(torch, quick):
           "graph": f"bipartite_random({side}, {side}, avg_deg=8.0, "
           f"seed={SEED})", "n": r.n, "arcs": r.num_arcs,
           "deg_max": r.deg_max, "lr_edges": len(bp.lr_edges),
-          "gen_s": gen_s, "wall_s": wall, "cycles": sol.stats.cycles,
+          "gen_s": gen_s, "setup_wait_s": wait_s, "wall_s": wall,
+          "cycles": sol.stats.cycles,
           "value": sol.value, "launches": launches,
           "matching_wall_s": wall_pairs, "matching_launches": launches_pairs,
           "scipy_value": want, "scipy_s": t_scipy,
@@ -815,20 +859,27 @@ def warm_path(torch, ctx):
     return {"warm": launches_warm}
 
 
-def adversarial_deltas(r, graph, s, t):
-    """The first batch of the adversarial update trace of ``graph``, as
-    ``(batch, signed deltas against r)``."""
+def adversarial_batch(graph, s, t):
+    """The first batch of the adversarial update trace of ``graph``: made
+    in the set-up pool, as its trace is a host walk over every edge."""
     from repro_torch.graphs.generators import update_trace
+
+    return update_trace(graph, s, t, n_batches=1, batch_size=STREAM_EVENTS,
+                        adversarial=True, seed=SEED)[0]
+
+
+def adversarial_deltas(r, batch):
+    """``batch`` (:func:`adversarial_batch`) as signed deltas against
+    ``r``."""
     from repro_torch.streaming import normalize_events
 
-    batch = update_trace(graph, s, t, n_batches=1, batch_size=STREAM_EVENTS,
-                         adversarial=True, seed=SEED)[0]
-    return batch, normalize_events(r, batch)[1]
+    return normalize_events(r, batch)[1]
 
 
 def drain_kernel_vs_plain(torch, problem, ctx):
     """Phase ``drain_kernel_vs_plain``: the main path's corrected solution
-    drained after the first adversarial batch by ``reroute.apply_signed``
+    drained after the first adversarial batch (``ctx["drain_batch"]``, the
+    main graph's :func:`adversarial_batch`) by ``reroute.apply_signed``
     on the min-search kernel and on the plain path, both on the card:
     bit-equal, and the plain drain launches nothing."""
     import numpy as np
@@ -837,9 +888,8 @@ def drain_kernel_vs_plain(torch, problem, ctx):
 
     r, s, t = problem.residual("bcsr"), problem.s, problem.t
     res, e = ctx["main"].warm_start.arrays()  # corrected in phase2_path
-    t0 = time.perf_counter()
-    batch, ups = adversarial_deltas(r, problem.graph, s, t)
-    gen_s = time.perf_counter() - t0
+    batch = ctx["drain_batch"]
+    ups = adversarial_deltas(r, batch)
     ctx["drain_prep"] = reroute.prepare_signed(r, res, e, s, t, ups)
     kern, wall_k, launches_k = driven(torch, lambda: reroute.apply_signed(
         r, res, e, s, t, ups, use_kernel=True), VC_KERNEL_KERNELS)
@@ -854,7 +904,7 @@ def drain_kernel_vs_plain(torch, problem, ctx):
             == (plain.value, plain.budget, plain.overflow, plain.ok),
             "the drain on the kernel != the plain drain on the card")
     emit({"phase": "drain_kernel_vs_plain", "events": len(batch),
-          "deltas": ups, "trace_gen_s": gen_s, "overflow": kern.overflow,
+          "deltas": ups, "overflow": kern.overflow,
           "value_before": int(e[t]), "value": kern.value,
           "budget": kern.budget, "kernel_wall_s": wall_k,
           "plain_wall_s": wall_p, "kernel_launches": launches_k,
@@ -875,11 +925,12 @@ def pooled_drain(torch, ctx):
     from repro_torch.streaming import reroute
 
     items = []
-    for sol in ctx["sols"]["vc_kernel_bsearch"]:
+    for sol, adv in zip(ctx["sols"]["vc_kernel_bsearch"],
+                        ctx["batch_traces"]):
         h = sol.warm_start
         res, e = h.arrays()
-        items.append((h.residual, res, e, h.s, h.t, adversarial_deltas(
-            h.residual, sol.problem.graph, h.s, h.t)[1]))
+        items.append((h.residual, res, e, h.s, h.t,
+                      adversarial_deltas(h.residual, adv)))
     ctx["pool_preps"] = [reroute.prepare_signed(*it) for it in items]
     calls = {"dense": 0, "avq": 0, "rows": set()}
     hook = kops.min_neighbor_minh_fn
@@ -966,20 +1017,32 @@ def timed_call(fn, *args, **kw):
     return out, time.perf_counter() - t0
 
 
-def batch_graphs(size):
-    """The batched path's instances, ``washington_rlg(*size)`` with seeds
-    ``SEED``, ``SEED + 1``, ...: made in the set-up pool."""
+def main_graph(rows, cols):
+    """The main graph, ``washington_rlg(rows, cols, seed=SEED)``, and its
+    adversarial batch (:func:`adversarial_batch`): made in the set-up
+    pool."""
     from repro_torch.graphs.generators import washington_rlg
 
-    return [washington_rlg(*size, seed=SEED + i) for i in range(BATCH)]
+    g, s, t = washington_rlg(rows, cols, seed=SEED)
+    return (g, s, t), adversarial_batch(g, s, t)
+
+
+def batch_graphs(size):
+    """The batched path's instances, ``washington_rlg(*size)`` with seeds
+    ``SEED``, ``SEED + 1``, ..., and each one's adversarial batch
+    (:func:`adversarial_batch`): made in the set-up pool."""
+    from repro_torch.graphs.generators import washington_rlg
+
+    graphs = [washington_rlg(*size, seed=SEED + i) for i in range(BATCH)]
+    return graphs, [adversarial_batch(*x) for x in graphs]
 
 
 def stream_inputs(graph, s, t):
-    """The streaming phase's host inputs, made in the set-up pool while
-    the card works: the adversarial batches and the mixed one, the graph
-    they fold to (for the cold check), and the seconds of each."""
-    from repro_torch.graphs.generators import (apply_events_to_graph,
-                                               update_trace)
+    """The streaming phase's update batches, made in the set-up pool
+    while the card works: the adversarial batches (the first of which is
+    :func:`adversarial_batch`'s) and the mixed one, and the seconds of
+    each."""
+    from repro_torch.graphs.generators import update_trace
 
     t0 = time.perf_counter()
     batches = update_trace(graph, s, t, n_batches=STREAM_ADVERSARIAL,
@@ -989,28 +1052,47 @@ def stream_inputs(graph, s, t):
     batches += update_trace(graph, s, t, n_batches=1,
                             batch_size=STREAM_EVENTS, p_insert=0.5,
                             p_delete=0.0, seed=SEED)
-    t2 = time.perf_counter()
-    folded = apply_events_to_graph(graph, batches)
-    return batches, folded, {"trace_gen_adversarial_s": t1 - t0,
-                             "trace_gen_mixed_s": t2 - t1,
-                             "fold_s": time.perf_counter() - t2}
+    return batches, {"trace_gen_adversarial_s": t1 - t0,
+                     "trace_gen_mixed_s": time.perf_counter() - t1}
 
 
-def stream_path(torch, problem, inputs):
-    """Phase ``stream_path``: a streaming session on the main graph in the
-    paper-faithful mode, through the adversarial batches and one mixed
-    batch with a new arc pair (``inputs``, the pending result of
-    :func:`stream_inputs`); every version checked by
-    :func:`check_version`, the last against a cold solve of the folded
-    graph."""
+def mid_inputs(size):
+    """The streaming and distributed phases' host inputs, made in the
+    set-up pool while the card works: ``washington_rlg(*size, seed=SEED)``
+    and scipy's Dinic on it, the stream's update batches
+    (:func:`stream_inputs`) and Dinic on the graph they fold it to (the
+    oracle of the stream's last version).  Returns a dict."""
+    from repro_torch.graphs.generators import (apply_events_to_graph,
+                                               washington_rlg)
+
+    t0 = time.perf_counter()
+    g, s, t = washington_rlg(*size, seed=SEED)
+    value, _ = scipy_maxflow(g.n, g.edges, g.cap, s, t)
+    batches, trace_s = stream_inputs(g, s, t)
+    folded = apply_events_to_graph(g, batches)
+    folded_value, _ = scipy_maxflow(folded.n, folded.edges, folded.cap, s, t)
+    return {"graph": (g, s, t), "size": size, "value": value,
+            "batches": batches,
+            "trace_s": trace_s, "folded_value": folded_value,
+            "seconds": time.perf_counter() - t0}
+
+
+def stream_path(torch, mid_in):
+    """Phase ``stream_path``: a streaming session on the mid-size graph in
+    the paper-faithful mode, through the adversarial batches and one
+    mixed batch with a new arc pair (``mid_in``, the pending result of
+    :func:`mid_inputs`); every version checked by :func:`check_version`,
+    the last against scipy's Dinic on the folded graph."""
     from repro_torch.api import MaxflowProblem, Solver
     from repro_torch.obs import REGISTRY, TRACER
     from repro_torch.streaming import stream
 
-    s, t = problem.s, problem.t
     t0 = time.perf_counter()
-    batches, folded, setup_s = inputs.get()
+    mid = mid_in.get()
     wait_s = time.perf_counter() - t0
+    problem = MaxflowProblem(*mid["graph"])
+    s, t = problem.s, problem.t
+    batches, setup_s = mid["batches"], mid["trace_s"]
 
     class Recording(Solver):
         """Keeps the last warm re-solve's solution, for its cycles."""
@@ -1032,6 +1114,8 @@ def stream_path(torch, problem, inputs):
     sg, wall_open, launches_open = driven(
         torch, lambda: solver.open_stream(problem), MAIN_KERNELS)
     _, wall_check, _ = driven(torch, lambda: check_version(sg.query(0), s, t))
+    require(sg.query(0).value == mid["value"], f"the stream's first value "
+            f"{sg.query(0).value} != scipy Dinic {mid['value']}")
     emit({"phase": "stream_version", "version": 0, "value": sg.query(0).value,
           "wall_s": wall_open, "launches": launches_open,
           "check_wall_s": wall_check, "setup_wait_s": wait_s,
@@ -1084,36 +1168,29 @@ def stream_path(torch, problem, inputs):
         stream.rebuild_with_state = rebuild
     require(sg.stats()["structural_rebuilds"] == 1 and len(rebuild_s) == 1,
             f"the mixed batch made no structural rebuild: {sg.stats()}")
-    fp = MaxflowProblem(folded, s, t)
-    t0 = time.perf_counter()
-    fp.residual("bcsr")
-    csr_s = time.perf_counter() - t0
-    cold, wall_cold, _ = driven(torch, lambda: Solver(
-        mode="vc_kernel_bsearch").solve(fp), MAIN_KERNELS)
-    require(cold.value == value, f"the stream's last value {value} != a "
-            f"cold solve of the folded graph {cold.value}")
+    require(value == mid["folded_value"], f"the stream's last value {value}"
+            f" != scipy Dinic on the folded graph {mid['folded_value']}")
     emit({"phase": "stream_path", "ok": True, "versions": len(batches) + 1,
-          "stats": sg.stats(), "rebuild_s": rebuild_s,
-          "fold_s": setup_s["fold_s"],
-          "folded_csr_s": csr_s, "cold_value": cold.value,
-          "cold_wall_s": wall_cold, "cold_cycles": cold.stats.cycles})
+          "graph": f"washington_rlg({mid['size'][0]}, {mid['size'][1]}, "
+          f"seed={SEED})", "stats": sg.stats(), "rebuild_s": rebuild_s,
+          "scipy_folded_value": mid["folded_value"],
+          "setup_s": mid["seconds"]})
     sg.close()
     return {"stream_open": launches_open}
 
 
-def views_and_modes(quick, small, torch, problem, batch, ctx, paths,
-                    stream_in):
-    """The phases of phase 2, the views, ``tc`` and streaming (its inputs
-    ``stream_in`` pending in the set-up pool), each driven with the launch
-    counts set to 0 just before it and read just after."""
-    paths.update(tc_path(torch, ctx, batch))
+def views_and_modes(quick, torch, problem, ctx, paths):
+    """The phases of phase 2, the views, ``tc`` and streaming (their host
+    inputs pending in the set-up pool, in ``ctx``), each driven with the
+    launch counts set to 0 just before it and read just after."""
+    paths.update(tc_path(torch, ctx))
     paths.update(phase2_path(torch, problem, ctx))
     batched_phase2(torch, ctx)
-    paths.update(matching_path(torch, quick))
+    paths.update(matching_path(torch, quick, ctx["matching_in"]))
     paths.update(warm_path(torch, ctx))
     paths.update(drain_kernel_vs_plain(torch, problem, ctx))
     paths.update(pooled_drain(torch, ctx))
-    paths.update(stream_path(torch, problem, stream_in))
+    paths.update(stream_path(torch, ctx["mid_in"]))
 
 
 def drain_loops(torch, ctx, minh_fn) -> dict:
@@ -1357,15 +1434,16 @@ def handle_solution(handle, value):
     return Solution(None, value, SolveStats(), handle, None)
 
 
-def serve_path(torch, graphs, oracles, pool, drain_log):
+def serve_path(torch, graphs, want, pool, drain_log):
     """Phase ``serve_path``: ``MaxflowService(mode="vc_fused",
     max_batch=8)`` on the card, one bucket of ``washington_rlg`` graphs:
     16 fresh instances (2 coalesced repeats) in 2 flushes, 4 cached
     repeats, 4 resubmits (16 min-cut arcs +50 on two, 2 flow-carrying
     source arcs zeroed on two) whose first admission corrects the first
     flush in one pooled phase 2, then one flush.  Every value against
-    scipy's Dinic; on the card, bit for bit: the cold rows against the
-    plain ``batched_solve_impl`` (:func:`rows_vs_plain`), the correction
+    scipy's Dinic (``want``); on the card, bit for bit: the first
+    flush's cold rows against the plain ``batched_solve_impl``
+    (:func:`rows_vs_plain`), the correction
     against the plain ``batched_phase2`` and the decreases' drains
     (``drain_log``, on the gather entry) against the plain drain.
     Returns the service, its context and the launches."""
@@ -1397,7 +1475,6 @@ def serve_path(torch, graphs, oracles, pool, drain_log):
     require(len(flushes) == 2 and [f["live"] for f in flushes] == [BATCH] * 2
             and all(r.batch_size == BATCH for r in cold_res),
             f"the cold requests did not ride 2 full flushes: {flushes}")
-    want = [o.get()[0] for o in oracles]
     got = [r.maxflow for r in cold_res[:len(graphs)]]
     require(got == want, f"served values {got} != scipy Dinic {want}")
     require([r.maxflow for r in cold_res[len(graphs):]]
@@ -1406,14 +1483,13 @@ def serve_path(torch, graphs, oracles, pool, drain_log):
     handles = [svc.results.peek(r.graph_id).handle for r in cold_res[
         :len(graphs)]]
     pre = [(h._res.copy(), h._e.copy()) for h in handles]
-    # the cold rows bit for bit against the plain batched core on the
-    # bucket's own shapes (its first global relabel and chunking are the
-    # service's)
+    # the first flush's cold rows bit for bit against the plain batched
+    # core on the bucket's own shapes (its first global relabel and
+    # chunking are the service's); the second flush runs the same code on
+    # other rows, and the plain discharge takes about 20 ms a launch
     t0 = time.perf_counter()
-    same = sum(rows_vs_plain(torch, handles[i:i + BATCH],
-                             cold_res[i:i + BATCH], key, "vc_fused",
-                             "serve_path")
-               for i in (0, BATCH))
+    same = rows_vs_plain(torch, handles[:BATCH], cold_res[:BATCH], key,
+                         "vc_fused", "serve_path")
     plain_wall = time.perf_counter() - t0
 
     reps, wall_rep, paths["serve_repeats"] = driven(torch, lambda: [
@@ -1593,8 +1669,7 @@ def serve_streams(torch, svc, sctx, pool, drain_log):
     require(not any(paths["serve_open"].values())
             and svc.n_solved == solved,
             "opening a stream on a cached graph solved it")
-    adv = [adversarial_deltas(svc._stream(sid).chain.get(0).handle.residual,
-                              *x)[0] for sid, x in zip(sids, graphs)]
+    adv = sctx["stream_traces"]
     rng = np.random.default_rng(SEED)
     mixed = []
     for g, s, t in graphs[:SERVE_MIXED]:
@@ -1676,7 +1751,7 @@ def serve_streams(torch, svc, sctx, pool, drain_log):
     return paths
 
 
-def serve_policy(torch, graphs, oracles):
+def serve_policy(torch, graphs, want):
     """Phase ``serve_policy``: ``ServiceConfig(mode="auto", max_batch=4)``
     on 20 ``washington_rlg`` instances of one bucket: 4 trial flushes
     (each first signature re-dispatched warm), then one in the pinned
@@ -1699,7 +1774,6 @@ def serve_policy(torch, graphs, oracles):
         return [f.result() for f in futs]
 
     res, wall, launches = driven(torch, run)
-    want = [o.get()[0] for o in oracles]
     require([r.maxflow for r in res] == want,
             f"auto values {[r.maxflow for r in res]} != scipy Dinic {want}")
     st = svc.stats()
@@ -1741,11 +1815,11 @@ def serve_policy(torch, graphs, oracles):
             for f in flushes[:4]}
 
 
-def launcher_vs_dinic(pool, drive_log, records, what):
-    """Every value a launcher run served against scipy's Dinic on the
-    graph its work item denotes (``workload.resolve_item`` on the items
-    the run's ``drive`` call was given, in ``drive_log``).  Returns the
-    number of values held."""
+def launcher_oracles(pool, drive_log, records, what):
+    """scipy's Dinic, started in ``pool``, on the graph of each work item
+    a launcher run served (``workload.resolve_item`` on the items the
+    run's ``drive`` call was given, in ``drive_log``): ``[(served value,
+    AsyncResult), ...]`` for :func:`launcher_vs_dinic`."""
     from repro_torch.serving.workload import resolve_item
 
     ((args, _, _),) = drive_log
@@ -1758,6 +1832,13 @@ def launcher_vs_dinic(pool, drive_log, records, what):
             g, s, t = resolve_item(items, item)
             held.append((rec["result"].maxflow, pool.apply_async(
                 scipy_maxflow, (g.n, g.edges, g.cap, s, t))))
+    return held
+
+
+def launcher_vs_dinic(held, what):
+    """Every value a launcher run served against scipy's Dinic
+    (``held``, from :func:`launcher_oracles`).  Returns the number of
+    values held."""
     got = [v for v, _ in held]
     want = [o.get()[0] for _, o in held]
     require(got == want, f"{what}: served values {got} != scipy Dinic "
@@ -1775,8 +1856,6 @@ def serve_launcher(torch, quick, pool):
     value verified, every error typed, every injected dispatch fault
     counted by the service.  Both runs' served values are also held
     against scipy's Dinic (:func:`launcher_vs_dinic`)."""
-    import tempfile
-
     from repro_torch.errors import DeadlineExceeded, Overloaded
     from repro_torch.launch import serve_maxflow
     from repro_torch.obs import REGISTRY, TRACER
@@ -1799,7 +1878,8 @@ def serve_launcher(torch, quick, pool):
         serve_maxflow.check_artifacts(snap, trace, auto_mode=True)
     require(all(r["error"] is None for r in records),
             "the launcher's run failed a request")
-    held = launcher_vs_dinic(pool, drive_log, records, "serve_launcher")
+    # Dinic on the served graphs runs in the pool meanwhile
+    held = launcher_oracles(pool, drive_log, records, "serve_launcher")
     serve_clean(snap["stats"], snap["metrics"], "serve_launcher")
     require(any(launches[k] for k in KERNELS), "the launcher's auto run "
             "launched no kernel")
@@ -1808,11 +1888,11 @@ def serve_launcher(torch, quick, pool):
     overhead = serve_maxflow.measure_telemetry_overhead(
         items, dict(mode="auto", max_batch=8, cycle_chunk=16))
     st = snap["stats"]
-    emit({"phase": "serve_launcher", "run": "auto", "requests": n_req,
-          "wall_s": wall, "launches": launches, "solved": st["solved"],
-          "batches": st["batches"], "buckets": st["buckets"],
-          "mode_policy": st["mode_policy"], "values_equal_dinic": held,
-          "telemetry_overhead": overhead})
+    auto_row = {"phase": "serve_launcher", "run": "auto", "requests": n_req,
+                "wall_s": wall, "launches": launches,
+                "solved": st["solved"], "batches": st["batches"],
+                "buckets": st["buckets"], "mode_policy": st["mode_policy"],
+                "telemetry_overhead": overhead}
 
     REGISTRY.reset()
     with recording(workload, "drive") as drive_log:
@@ -1822,8 +1902,11 @@ def serve_launcher(torch, quick, pool):
                                 "--deadline-ms", "5000", "--poll-every",
                                 "4", "--chaos", "--chaos-fail-modes",
                                 "vc_fused", "--verify"])))
-    held_c = launcher_vs_dinic(pool, drive_log, records,
-                               "serve_launcher chaos")
+    held_c = launcher_oracles(pool, drive_log, records,
+                              "serve_launcher chaos")
+    emit({**auto_row, "values_equal_dinic": launcher_vs_dinic(
+        held, "serve_launcher")})
+    held_c = launcher_vs_dinic(held_c, "serve_launcher chaos")
     errs = [r["error"] for r in records if r["error"] is not None]
     require(all(isinstance(e, (Overloaded, DeadlineExceeded)) for e in errs),
             f"an untyped error: {[type(e).__name__ for e in errs]}")
@@ -1847,7 +1930,10 @@ def serve_launcher(torch, quick, pool):
 
 def serve_graphs(quick):
     """The serving phases' fresh instances, made in the set-up pool while
-    the card works: ``(extra, policy, seconds)``."""
+    the card works, scipy's Dinic on each, and the adversarial batches
+    (:func:`adversarial_batch`) of the ones ``serve_streams`` opens
+    streams on: ``(extra, policy, extra_values, policy_values,
+    stream_traces, seconds)``."""
     from repro_torch.graphs.generators import washington_rlg
 
     bsize, psize = SIZES[quick][2], POLICY_SIZE[quick]
@@ -1856,34 +1942,36 @@ def serve_graphs(quick):
              for i in range(SERVE_FRESH - BATCH)]
     policy = [washington_rlg(*psize, seed=SEED + i)
               for i in range(POLICY_INSTANCES)]
-    return extra, policy, time.perf_counter() - t0
+    values = [[scipy_maxflow(g.n, g.edges, g.cap, s, t)[0]
+               for g, s, t in graphs] for graphs in (extra, policy)]
+    traces = [adversarial_batch(*x) for x in extra[:SERVE_STREAMS]]
+    return extra, policy, *values, traces, time.perf_counter() - t0
 
 
-def serving(torch, quick, bgraphs, oracles_b, pool, graphs_in):
+def serving(torch, quick, bgraphs, want_b, pool, graphs_in):
     """The serving phases (their fresh instances ``graphs_in`` pending in
-    the set-up pool), each driven with the launch counts set to 0 just
-    before it and read just after."""
+    the set-up pool; ``want_b``, the batch's scipy values), each driven
+    with the launch counts set to 0 just before it and read just
+    after."""
     bsize, psize = SIZES[quick][2], POLICY_SIZE[quick]
     t0 = time.perf_counter()
-    extra, policy, gen_s = graphs_in.get()
+    (extra, policy, want_extra, want_policy, stream_traces,
+     gen_s) = graphs_in.get()
     emit({"phase": "serve_graphs", "gen_s": gen_s,
           "setup_wait_s": time.perf_counter() - t0,
           "serve_path": f"washington_rlg({bsize[0]}, {bsize[1]}, "
           f"seed={SEED}..{SEED + SERVE_FRESH - 1})",
           "serve_policy": f"washington_rlg({psize[0]}, {psize[1]}, "
           f"seed={SEED}..{SEED + POLICY_INSTANCES - 1})"})
-    oracles = oracles_b + [pool.apply_async(scipy_maxflow, (
-        g.n, g.edges, g.cap, s, t)) for g, s, t in extra]
-    p_oracles = [pool.apply_async(scipy_maxflow, (g.n, g.edges, g.cap, s, t))
-                 for g, s, t in policy]
     from repro_torch.streaming import reroute
 
     t0 = time.perf_counter()
     with recording(reroute, "drain_prepared") as drain_log:
-        svc, sctx, paths = serve_path(torch, bgraphs + extra, oracles, pool,
-                                      drain_log)
+        svc, sctx, paths = serve_path(torch, bgraphs + extra,
+                                      want_b + want_extra, pool, drain_log)
+        sctx["stream_traces"] = stream_traces
         paths.update(serve_streams(torch, svc, sctx, pool, drain_log))
-    paths.update(serve_policy(torch, policy, p_oracles))
+    paths.update(serve_policy(torch, policy, want_policy))
     paths.update(serve_launcher(torch, quick, pool))
     emit({"phase": "serving_done", "seconds": time.perf_counter() - t0})
     return paths
@@ -1916,23 +2004,23 @@ def no_launches(counts, what):
     require(not any(counts.values()), f"{what} launched a kernel: {counts}")
 
 
-def distributed_path(torch, problem, small, side, want, want_small):
+def distributed_path(torch, problem, small, want, want_small, main):
     """Phase ``distributed_path``: the distributed backend on a one-rank
     NCCL group opened in this process.  ``Solver(backend="distributed")``
-    on the main graph against scipy's Dinic (``want``); the three
-    exchanges on the ``small`` problem, each against Dinic
+    on ``problem`` (the batched path's first graph) against
+    scipy's Dinic (``want``); the three exchanges on the ``small``
+    problem (``washington_rlg`` at ``DIST_SIZE``), each against Dinic
     (``want_small``) and all three ending in the same state; no kernel
     launched; one engine chunk of steps in each exchange and one of
-    relabel sweeps with no host sync; each step's time; then the launcher
-    on ``small`` (``washington_rlg(side, side)``) under torchrun."""
-    import tempfile
-
+    relabel sweeps with no host sync, and each step's time, on the
+    ``main`` problem (the main graph).  The launcher under torchrun runs
+    later, beside the other processes of their own
+    (:func:`launcher_start`)."""
     import torch.distributed as dist
 
     from repro_torch.api import Solver
     from repro_torch.core import distributed as D
 
-    cadence = 1024
     dev = torch.device("cuda", 0)
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1942,10 +2030,11 @@ def distributed_path(torch, problem, small, side, want, want_small):
             sol, wall, paths["distributed"] = driven(
                 torch, lambda: Solver(
                     backend="distributed", mode="vc",
-                    global_relabel_cadence=cadence).solve(problem))
+                    global_relabel_cadence=DIST_CADENCE).solve(problem))
             no_launches(paths["distributed"], "the distributed solve")
             st = sol.stats
             emit({"phase": "distributed_path", "backend": "distributed",
+                  "n": problem.graph.n,
                   "group": f"{dist.get_backend()}, world size "
                   f"{dist.get_world_size()}", "wall_s": wall,
                   "value": sol.value, "scipy_value": want,
@@ -1960,7 +2049,8 @@ def distributed_path(torch, problem, small, side, want, want_small):
             for mode in D.MODES:
                 out, wall, counts = driven(
                     torch, lambda mode=mode: D.distributed_solve_impl(
-                        r, small.s, small.t, mode=mode, cycles=cadence))
+                        r, small.s, small.t, mode=mode,
+                        cycles=DIST_CADENCE))
                 no_launches(counts, f"the {mode} exchange")
                 paths[f"distributed[{mode}]"] = counts
                 outs[mode] = (out, D.gather_res(out.res, out.meta))
@@ -1968,7 +2058,7 @@ def distributed_path(torch, problem, small, side, want, want_small):
                       "wall_s": wall, "value": out.value,
                       "scipy_value": want_small,
                       "supersteps": out.supersteps,
-                      "steps": out.supersteps * cadence,
+                      "steps": out.supersteps * DIST_CADENCE,
                       "gr_sweeps": out.gr_sweeps})
                 require(out.value == want_small,
                         f"{mode} value {out.value} != scipy Dinic "
@@ -1982,49 +2072,68 @@ def distributed_path(torch, problem, small, side, want, want_small):
                         and torch.equal(out.e, base.e),
                         f"the {mode} exchange ends elsewhere than the "
                         "replicated one")
-            distributed_steps(torch, dev, problem)
+            distributed_steps(torch, dev, main)
         finally:
             dist.destroy_process_group()
-    distributed_launcher(side, want_small)
     return paths
 
 
-def distributed_launcher(side, want_small):
-    """The launcher's card branch in a process group of its own: one
-    rank under ``torch.distributed.run --standalone``, which initialises
-    NCCL from ``env://`` on ``LOCAL_RANK``'s card, solving the batch's
-    first graph, ``washington_rlg(side, side, seed=SEED)``, at the main
-    path's cadence; its printed value against scipy's Dinic
-    (``want_small``).  Its own ``--verify`` (the port's pure-Python
-    Dinic) is left off: scipy's is the oracle here.  The whole process
-    group it starts is killed on the way out."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "1", "-m", "repro_torch.launch.maxflow",
-           "--backend", "distributed", "--generator", "washington",
-           "--vertices", str(side * side), "--seed", str(SEED),
-           "--cycle-chunk", "1024"]
+def start_proc(cmd):
+    """``cmd`` started from the checkout's root with its ``src`` on the
+    path, in a session of its own (so that :func:`finish_proc` can kill
+    every process it starts), its output piped: ``(proc, cmd, t0)``."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
-    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
                             start_new_session=True)
+    return proc, cmd, time.perf_counter()
+
+
+def finish_proc(started):
+    """Waits for a :func:`start_proc` process, at most
+    ``SUBPROCESS_TIMEOUT`` seconds from its start (past that it raises),
+    and kills its whole process group on the way out: ``(returncode,
+    stdout, stderr, seconds from its start until it was collected)``."""
+    proc, _, t0 = started
     try:
-        out, err = proc.communicate(timeout=300)
+        out, err = proc.communicate(timeout=max(
+            1.0, SUBPROCESS_TIMEOUT - (time.perf_counter() - t0)))
     finally:
         with contextlib.suppress(ProcessLookupError):
             os.killpg(proc.pid, signal.SIGKILL)
         proc.wait()
-    wall = time.perf_counter() - t0
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def launcher_start(side):
+    """The launcher's card branch in a process group of its own: one
+    rank under ``torch.distributed.run --standalone``, which initialises
+    NCCL from ``env://`` on ``LOCAL_RANK``'s card, solving
+    ``washington_rlg(side, side, seed=SEED)`` at ``DIST_CADENCE``.
+    Its own ``--verify`` (the port's pure-Python Dinic) is left off:
+    scipy's is the oracle here (:func:`distributed_launcher`)."""
+    return start_proc([
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc-per-node", "1", "-m", "repro_torch.launch.maxflow",
+        "--backend", "distributed", "--generator", "washington",
+        "--vertices", str(side * side), "--seed", str(SEED),
+        "--cycle-chunk", str(DIST_CADENCE)])
+
+
+def distributed_launcher(started, want_small):
+    """Phase ``distributed_launcher``: the :func:`launcher_start` run's
+    printed value against scipy's Dinic (``want_small``), on the card."""
+    rc, out, err, wall = finish_proc(started)
     found = re.search(r"^V=.* device=(\S+) maxflow=(\d+) .*$", out, re.M)
-    require(proc.returncode == 0 and found is not None,
-            f"the launcher under torchrun failed (rc {proc.returncode}): "
+    require(rc == 0 and found is not None,
+            f"the launcher under torchrun failed (rc {rc}): "
             f"{out[-1000:]} {err[-3000:]}")
     device, value = found.group(1), int(found.group(2))
-    emit({"phase": "distributed_launcher", "command": " ".join(cmd[1:]),
-          "wall_s": wall, "device": device, "value": value,
-          "scipy_value": want_small,
+    emit({"phase": "distributed_launcher",
+          "command": " ".join(started[1][1:]), "collected_s": wall,
+          "device": device, "value": value, "scipy_value": want_small,
           "printed": found.group(0)})
     require(device.startswith("cuda"),
             f"the launcher ran on {device}, not the card")
@@ -2137,35 +2246,36 @@ def distributed_steps(torch, dev, problem):
 STATIC_SHAPE_BRANCHES: dict[str, str] = {}
 
 
-def analysis_phase(torch, loops, minh_fn, graph):
-    """Phase ``analysis``: ``python -m repro_torch.launch.analyze --device
-    cuda --smoke`` in a process of its own (every surface's census under
-    sync-debug "error", its launches against the wrappers' counters, its
-    chunk captured into a CUDA graph), which must find 0 violations and 0
-    lint findings; then one chunk of each of ``step_timing``'s ``loops``
+def analysis_start(out):
+    """``python -m repro_torch.launch.analyze --device cuda --smoke``
+    started in a process of its own (:func:`start_proc`), its record
+    written to ``out``."""
+    return start_proc([sys.executable, "-m", "repro_torch.launch.analyze",
+                       "--device", "cuda", "--smoke", "--out", str(out),
+                       "--root", str(ROOT)])
+
+
+def analysis_phase(torch, started, out, loops, minh_fn, graph):
+    """Phase ``analysis``: the :func:`analysis_start` process (every
+    surface's census under sync-debug "error", its launches against the
+    wrappers' counters, its chunk captured into a CUDA graph; its record
+    in ``out``) must find 0 violations and 0 lint findings; then one
+    chunk of each of ``step_timing``'s ``loops``
     at the main graph's (``graph``) mid-solve state under the census and
     sync-debug
     "error", whose kernel launches a step must equal the same loops' on
     the analysis fixture, and whose aten ops a step must too, but for ops
     listed in ``STATIC_SHAPE_BRANCHES``."""
-    import tempfile
     from collections import Counter
 
     from repro_torch.analysis import baselines, surfaces
     from repro_torch.core import engine
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        out = pathlib.Path(tmp) / "ANALYSIS_torch.json"
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.analyze", "--device",
-             "cuda", "--smoke", "--out", str(out), "--root", str(ROOT)],
-            cwd=ROOT, capture_output=True, text=True, timeout=600,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        require(proc.returncode == 0,
-                f"the analyzer failed on the card:\n{proc.stdout[-3000:]}"
-                f"\n{proc.stderr[-3000:]}")
-        payload = json.loads(out.read_text())
+    rc, stdout, stderr, wall = finish_proc(started)
+    require(rc == 0, f"the analyzer failed on the card:\n{stdout[-3000:]}"
+            f"\n{stderr[-3000:]}")
+    payload = json.loads(out.read_text())
     summary = payload["summary"]
     require(summary["surfaces_traced"] == 25
             and summary["surfaces_clean"] == 25
@@ -2184,8 +2294,8 @@ def analysis_phase(torch, loops, minh_fn, graph):
             "capturable": rec["capturable"],
             "capture_error": c["capture_error"]}
     emit({"phase": "analysis", "what": "surfaces", "device":
-          payload["device_name"], "summary": summary,
-          "seconds": time.perf_counter() - t0, "surfaces": per_surface,
+          payload["device_name"], "summary": summary, "collected_s": wall,
+          "wait_s": time.perf_counter() - t0, "surfaces": per_surface,
           "baselines": payload["baselines"]})
 
     t1 = time.perf_counter()
@@ -2323,19 +2433,12 @@ def dryrun_phase(torch, smi):
     from repro_torch.launch.mesh import production_mesh
 
     out_dir = ROOT / "experiments" / "dryrun_torch"
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-           "--both-meshes", "--fresh", "--out-dir", str(out_dir)]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
-    wall = time.perf_counter() - t0
+    rc, stdout, stderr, wall = finish_proc(start_proc([
+        sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+        "--both-meshes", "--fresh", "--out-dir", str(out_dir)]))
     errs = {p.name: p.read_text()[-2000:] for p in out_dir.glob("*.err")}
-    require(proc.returncode == 0,
-            f"the dry run failed (rc {proc.returncode}): {proc.stdout[-2000:]}"
-            f" {proc.stderr[-2000:]} {errs}")
+    require(rc == 0, f"the dry run failed (rc {rc}): {stdout[-2000:]}"
+            f" {stderr[-2000:]} {errs}")
     cfg = registry.get_config("wbpr-maxflow")
     n_rec = 0
     for cell in SH.cells_for(cfg):
@@ -2384,7 +2487,7 @@ def dryrun_phase(torch, smi):
                       "active_on_rank": rec["graph"]["active_on_rank"]})
                 n_rec += 1
     emit({"phase": "dryrun", "records": n_rec, "wall_s": wall,
-          "cells": proc.stdout.strip().splitlines()})
+          "cells": stdout.strip().splitlines()})
 
 
 #: the max-flow examples, each verifying itself against Dinic
@@ -2392,33 +2495,47 @@ EXAMPLES = ("quickstart_torch.py", "bipartite_matching_torch.py",
             "serve_maxflow_torch.py")
 
 
-def examples_phase():
-    """Phase ``examples``: each of ``EXAMPLES`` on the card (its default
-    device), in a process of its own, exits 0 having verified itself.
-    They time nothing, so the three run at once."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
-    t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(
-        [sys.executable, str(ROOT / "examples" / name)], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name in EXAMPLES}
-    try:
-        for name, proc in procs.items():
-            out, err = proc.communicate(timeout=300)
-            require(proc.returncode == 0 and "verified" in out
-                    and "cuda" in out,
-                    f"examples/{name} failed on the card (rc "
-                    f"{proc.returncode}): {out[-1500:]} {err[-2000:]}")
-            emit({"phase": "examples", "example": name,
-                  "wall_s": time.perf_counter() - t0,
-                  "last_lines": out.strip().splitlines()[-2:]})
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+def examples_start():
+    """Each of ``EXAMPLES`` started on the card (its default device), in
+    a process of its own (:func:`start_proc`)."""
+    return {name: start_proc([sys.executable, str(ROOT / "examples" / name)])
+            for name in EXAMPLES}
+
+
+def examples_phase(started):
+    """Phase ``examples``: each :func:`examples_start` process exits 0
+    having verified itself on the card."""
+    for name, one in started.items():
+        rc, out, err, wall = finish_proc(one)
+        require(rc == 0 and "verified" in out and "cuda" in out,
+                f"examples/{name} failed on the card (rc {rc}): "
+                f"{out[-1500:]} {err[-2000:]}")
+        emit({"phase": "examples", "example": name, "collected_s": wall,
+              "last_lines": out.strip().splitlines()[-2:]})
+
+
+def lm_phase(torch, quick: bool, smi: str) -> None:
+    """Phase ``lm_serve``: qwen3-4b at full width and depth in
+    bf16 built and checked against its specs, served through
+    ``launch/serve.main`` (B = 4, a 2048-token prompt, 32 tokens; the
+    decode loop under ``set_sync_debug_mode("error")``, one step under
+    the op census), held in float32 on the same weights (prefill against
+    the train forward's last position, decode against one teacher-forced
+    forward over the 2080 tokens, TF32 off), and a 2-layer cut run on the
+    card against the CPU (``repro_torch.launch.lm_serve_checks``).  The
+    LM path launches none of the kernels; ``--quick`` runs the SMOKE
+    config."""
+    from repro_torch.launch import lm_serve_checks
+
+    sizes = (dict(smoke=True, batch=2, prompt_len=64, tokens=8) if quick
+             else dict(batch=4, prompt_len=2048, tokens=32,
+                       expect_params=4_022_468_096))
+    torch.cuda.empty_cache()
+    reset_counts()
+    lm_serve_checks.run(lambda row: emit({**row, "nvidia_smi": smi}),
+                        **sizes)
+    no_launches(launch_counts(), "the LM path")
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -2439,23 +2556,30 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
-    from repro_torch.graphs.generators import washington_rlg
+    from repro_torch.graphs.generators import bipartite_random
 
-    # the main graph and the batch's are made in a set-up pool while the
-    # device starts and the kernels build; the same pool later makes the
-    # streaming and serving phases' host inputs; leaving the block
-    # terminates both processes
+    # every phase's host inputs are made in a set-up pool while the device
+    # starts, the kernels build and the card works: first the main graph
+    # (with its adversarial batch) and the batch's, then the stream's
+    # 512x512 graph (with its Dinics), the matching's and the serving
+    # graphs (with theirs); leaving the block terminates both processes
+    side = MATCHING_SIDE[args.quick]
     with multiprocessing.get_context("spawn").Pool(2) as setup:
         made = {"main": setup.apply_async(
-                    timed_call, (washington_rlg, rows, cols), {"seed": SEED}),
+                    timed_call, (main_graph, rows, cols)),
                 "batch": setup.apply_async(
-                    timed_call, (batch_graphs, bsize))}
-        return smoke(args, torch, t_start, setup, made)
+                    timed_call, (batch_graphs, bsize)),
+                "mid": setup.apply_async(mid_inputs, (MID_SIZE[args.quick],)),
+                "matching": setup.apply_async(timed_call, (
+                    bipartite_random, side, side),
+                    {"avg_deg": 8.0, "seed": SEED}),
+                "serve": setup.apply_async(serve_graphs, (args.quick,))}
+        return smoke(args, torch, t_start, made)
 
 
-def smoke(args, torch, t_start, setup, made) -> int:
-    """Every phase, in order, with ``setup`` the set-up pool and ``made``
-    its pending main and batch graphs."""
+def smoke(args, torch, t_start, made) -> int:
+    """Every phase, in order, with ``made`` the host inputs pending in the
+    set-up pool."""
     (rows, cols), small, bsize = SIZES[args.quick]
 
     # -- 1. device ----------------------------------------------------------
@@ -2821,9 +2945,14 @@ def smoke(args, torch, t_start, setup, made) -> int:
              f"B={3 * reps} rows > {most} resident blocks")
     emit({"phase": "kernels_edge_cases", "ok": True, "max_abs_err": errs})
 
+    # -- 3c. LM serving, while the set-up pool makes the main graph ---------
+    t0 = time.perf_counter()
+    lm_phase(torch, args.quick, smi)
+    emit({"phase": "lm_serve_done", "seconds": time.perf_counter() - t0})
+
     # -- 4. the main path at full size --------------------------------------
     t0 = time.perf_counter()
-    (graph, s, t), t_gen = made["main"].get()
+    ((graph, s, t), drain_batch), t_gen = made["main"].get()
     t_wait = time.perf_counter() - t0
     t0 = time.perf_counter()
     problem = MaxflowProblem(graph, s, t)
@@ -2834,7 +2963,7 @@ def smoke(args, torch, t_start, setup, made) -> int:
           "arcs": r.num_arcs, "deg_max": r.deg_max, "gen_s": t_gen,
           "setup_wait_s": t_wait, "csr_s": t_csr})
     t0 = time.perf_counter()
-    bgraphs, t_bgen = made["batch"].get()
+    (bgraphs, btraces), t_bgen = made["batch"].get()
     t_bwait = time.perf_counter() - t0
     batch = [MaxflowProblem(*bg_) for bg_ in bgraphs]
     for p_ in batch:
@@ -2847,28 +2976,33 @@ def smoke(args, torch, t_start, setup, made) -> int:
           "csr_s": time.perf_counter() - t0 - t_bwait})
     # scipy's Dinic takes minutes at the main graph's size: it runs in a
     # process of its own while the card solves, and a second process
-    # solves the batched instances; the set-up pool makes the streaming
-    # and serving phases' host inputs meanwhile; leaving the block
-    # terminates both oracle processes
+    # solves the batched instances and the exchanges' graph; leaving the
+    # block terminates both oracle processes
+    dist_graph = washington_rlg(*DIST_SIZE[args.quick], seed=SEED)
     with multiprocessing.get_context("spawn").Pool(2) as pool:
-        stream_in = setup.apply_async(stream_inputs, (graph, s, t))
-        graphs_in = setup.apply_async(serve_graphs, (args.quick,))
         oracles = [pool.apply_async(scipy_maxflow, (graph.n, graph.edges,
                                                     graph.cap, s, t))]
         oracles += [pool.apply_async(scipy_maxflow, (g_.n, g_.edges, g_.cap,
                                                      s_, t_))
                     for g_, s_, t_ in bgraphs]
+        dist_oracle = pool.apply_async(scipy_maxflow, (
+            dist_graph[0].n, dist_graph[0].edges, dist_graph[0].cap,
+            *dist_graph[1:]))
         paths, ctx = main_path_and_modes(small, torch, problem, batch,
                                          oracles)
-        views_and_modes(args.quick, small, torch, problem, batch, ctx, paths,
-                        stream_in)
-        want = main_oracle(ctx, oracles[0])
-        paths.update(serving(torch, args.quick, bgraphs, oracles[1:], pool,
-                             graphs_in))
+        ctx.update(drain_batch=drain_batch, batch_traces=btraces,
+                   mid_in=made["mid"], matching_in=made["matching"],
+                   serve_in=made["serve"])
+        views_and_modes(args.quick, torch, problem, ctx, paths)
+        paths.update(serving(torch, args.quick, bgraphs,
+                             ctx["batch_values"], pool, made["serve"]))
+        main_oracle(ctx, oracles[0])
+        want_dist = dist_oracle.get()[0]
     # -- 5c. the distributed backend, on a one-rank NCCL group ---------------
     t0 = time.perf_counter()
-    paths.update(distributed_path(torch, problem, batch[0], bsize[0], want,
-                                  ctx["batch_values"][0]))
+    paths.update(distributed_path(torch, batch[0],
+                                  MaxflowProblem(*dist_graph),
+                                  ctx["batch_values"][0], want_dist, problem))
     emit({"phase": "distributed_done", "seconds": time.perf_counter() - t0})
     emit({"phase": "launches_by_path", **paths})
 
@@ -3315,19 +3449,42 @@ def smoke(args, torch, t_start, setup, made) -> int:
         emit({**row, "top_device_us_per_step": top_device_ops(torch, run,
                                                               chunk)})
 
-    # -- 8. contract analysis: the analyzer, and chunks at full width -----
-    analysis_phase(torch, loops, minh_fn,
-                   f"washington_rlg({rows}, {cols}, seed={SEED}), mid-solve")
-
-    # -- 9. capacities outside int32, the dry run, the examples -----------
+    # -- 8. the processes of their own that time nothing run at once: the
+    # analyzer, the distributed launcher under torchrun and the examples;
+    # meanwhile the full-width chunks under the census and the capacities
+    # outside int32; then the dry run and LM serving, each alone, as both
+    # time the card
     checked = {f"washington_rlg({rows}, {cols})": problem,
                f"washington_rlg({bsize[0]}, {bsize[1]})": batch[0]}
-    for name, phase in (("overflow", lambda: overflow_phase(torch, checked)),
-                        ("dryrun", lambda: dryrun_phase(torch, smi)),
-                        ("examples", examples_phase)):
-        t0 = time.perf_counter()
-        phase()
-        emit({"phase": f"{name}_done", "seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "ANALYSIS_torch.json"
+        started = {"analysis": analysis_start(out),
+                   "launcher": launcher_start(DIST_SIZE[args.quick][0]),
+                   "examples": examples_start()}
+        try:
+            for name, phase in (
+                    ("analysis", lambda: analysis_phase(
+                        torch, started["analysis"], out, loops, minh_fn,
+                        f"washington_rlg({rows}, {cols}, seed={SEED}), "
+                        "mid-solve")),
+                    ("overflow", lambda: overflow_phase(torch, checked)),
+                    ("distributed_launcher", lambda: distributed_launcher(
+                        started["launcher"], want_dist)),
+                    ("examples", lambda: examples_phase(
+                        started["examples"]))):
+                t0 = time.perf_counter()
+                phase()
+                emit({"phase": f"{name}_done",
+                      "seconds": time.perf_counter() - t0})
+        finally:
+            for one in (started["analysis"], started["launcher"],
+                        *started["examples"].values()):
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(one[0].pid, signal.SIGKILL)
+                one[0].wait()
+    t0 = time.perf_counter()
+    dryrun_phase(torch, smi)
+    emit({"phase": "dryrun_done", "seconds": time.perf_counter() - t0})
 
     emit({"phase": "done", "quick": args.quick,
           "seconds": time.perf_counter() - t_start})

@@ -78,7 +78,8 @@ RULE_SCOPES = {
     "int64-state-cast": ((f"{_PORT}/core", f"{_PORT}/streaming",
                           f"{_PORT}/serving", f"{_PORT}/api"), ()),
     "bare-assert": (_SOLVER + tuple(f"{_PORT}/{d}" for d in (
-        "api", "obs", "graphs", "analysis", "launch", "runtime")), ()),
+        "api", "obs", "graphs", "analysis", "launch", "runtime", "configs",
+        "models", "training")), ()),
     "private-walker": (("tests/test_torch_*.py", "chip_smoke.py"), ()),
 }
 

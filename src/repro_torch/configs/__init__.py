@@ -1,3 +1,4 @@
 """Architecture configs selectable by ``--arch`` (port of the JAX
-package's ``repro.configs``): so far the max-flow workload,
-``wbpr-maxflow``; the language-model configs are not ported yet."""
+package's ``repro.configs``): the ten language-model configs, each exact
+(``CONFIG``) and reduced (``SMOKE``), and the max-flow workload,
+``wbpr-maxflow``."""

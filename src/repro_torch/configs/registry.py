@@ -3,11 +3,11 @@
 
 Every entry is selectable via ``--arch <id>`` in the launchers.  Shapes
 (per-arch cells) live in ``repro_torch.launch.shapes``.  The ids are the
-reference's, all of them; only ``wbpr-maxflow`` has a module in the port
-so far.  The language-model configs come with the LM core (ROADMAP.md,
-Queue 1 item 2): until then :func:`get_config` and
-:func:`get_smoke_config` raise ``NotImplementedError`` for their ids,
-and never hand back a stand-in.
+reference's, all of them, and each has its module in the port: the ten
+language-model configs (``repro_torch.configs.base.ModelConfig``) and
+the max-flow workload.  A config is data; which of its families the
+port's model can run is the model's business
+(``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 
@@ -21,18 +21,13 @@ ARCH_IDS = [
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
-#: the ids whose config module the port has
-PORTED = ("wbpr-maxflow",)
+#: the ids whose config module the port has: every one
+PORTED = tuple(ARCH_IDS)
 
 
 def _module(arch: str):
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; expected one of {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"the {arch!r} config is not ported to repro_torch yet: the "
-            "language-model configs and models come with the LM core "
-            "(ROADMAP.md, Queue 1 item 2)")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

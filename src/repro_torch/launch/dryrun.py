@@ -50,9 +50,11 @@ combines nothing, so its sweep count is this rank's local fixpoint, not
 the mesh's.  XLA's ``flops``, ``bytes_accessed`` and lower / compile
 times have no eager counterpart and are left out, not estimated.
 
-The language-model cells wait for the LM slices (ROADMAP.md, Queue 1
-items 2-6): an LM arch raises ``NotImplementedError``, and ``--all``
-covers ``wbpr-maxflow`` only.
+The language-model cells wait for the rest of the LM port (ROADMAP.md,
+Queue 1 items 3-6: the other mixers, training, and the sharding rules
+with the LM cells): an arch of a language-model family raises
+``NotImplementedError``, and ``--all`` covers the ``graph`` family
+(``wbpr-maxflow``) only.
 """
 from __future__ import annotations
 
@@ -80,8 +82,9 @@ EXCESS_SHARE = 0.25
 REPS = 10
 GRAPH_MODES = ("replicated", "sharded", "sparse")
 LM_GUIDANCE = ("the language-model dry-run cells are not ported to "
-               "repro_torch yet (ROADMAP.md, Queue 1 items 2-6); the port's "
-               "dry run covers --arch wbpr-maxflow")
+               "repro_torch yet: they wait for the other mixers, training "
+               "and the sharding rules (ROADMAP.md, Queue 1 items 3-6); the "
+               "port's dry run covers --arch wbpr-maxflow")
 
 
 def _mesh_tag(multi_pod: bool) -> str:
@@ -356,9 +359,9 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
     from repro_torch.launch import shapes as SH
     from repro_torch.launch.mesh import production_mesh
 
-    if arch in registry.ARCH_IDS and arch not in registry.PORTED:
-        raise NotImplementedError(f"{arch!r}: {LM_GUIDANCE}")
     cfg = registry.get_config(arch)
+    if cfg.family != "graph":
+        raise NotImplementedError(f"{arch!r}: {LM_GUIDANCE}")
     cells = {c.name: c for c in SH.cells_for(cfg)}
     cell = shape if isinstance(shape, SH.ShapeCell) else cells.get(shape)
     if cell is None:
@@ -404,7 +407,9 @@ def _jobs(args) -> list[tuple[str, str, bool, str]]:
     meshes = (False, True) if args.both_meshes else (args.multi_pod,)
     modes = (args.graph_mode,) if args.graph_mode else GRAPH_MODES
     jobs = []
-    for arch in registry.PORTED:
+    graph_archs = [a for a in registry.ARCH_IDS
+                   if registry.get_config(a).family == "graph"]
+    for arch in graph_archs:
         for cell in SH.cells_for(registry.get_config(arch)):
             for mp in meshes:
                 jobs += [(arch, cell.name, mp, m) for m in modes]

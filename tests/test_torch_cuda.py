@@ -1004,3 +1004,39 @@ def test_census_launches_equal_the_counters(card_analysis):
             assert counts["census"], f"{name} launched no kernel"
             launched += 1
     assert launched == 13
+
+
+def test_lm_serve_on_the_card_matches_cpu(cuda):
+    """The dense LM's prefill and a decode chain on the card against the
+    same float32 weights and tokens on the CPU (max |diff| within 1e-4 of
+    the logits' rms), the decode loop under sync-debug "error" (no host
+    read), and the launcher's card branch (events, peak bytes)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.training.train_step import (make_decode_step,
+                                                 make_prefill_step)
+
+    cfg = dataclasses.replace(registry.get_smoke_config("qwen2.5-14b"),
+                              dtype=torch.float32, attn_chunk=8)
+    params, toks = serve.inputs(cfg, 2, 24, device=cuda)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = T.tree_map(lambda a: a.to(dev), params)
+        t = toks.to(dev)
+        last, cache = make_prefill_step(cfg, max_len=32)(p, t[:, :16])
+        logits = [last]
+        decode = make_decode_step(cfg)
+        with serve.no_host_sync(dev):
+            for i in range(16, 24):
+                _, lg, cache = decode(p, cache, t[:, i:i + 1])
+                logits.append(lg)
+        outs[dev.type] = torch.stack(logits, 1).cpu()
+    rms = outs["cpu"].pow(2).mean().sqrt()
+    assert (outs["cuda"] - outs["cpu"]).abs().max() <= 1e-4 * rms
+    rec = serve.main(["--arch", "qwen3-4b", "--smoke", "--census"])
+    assert rec["device"] == "cuda" and rec["peak_allocated_bytes"] > 0
+    assert rec["decode_step_host_reads"] == 0
+    assert len(rec["decode_step_ms"]) == 15

@@ -120,13 +120,30 @@ def test_wbpr_config_matches_the_reference():
         == [f.name for f in dataclasses.fields(rwbpr.GraphConfig)]
 
 
-@pytest.mark.parametrize("arch", [a for a in rregistry.ARCH_IDS
-                                  if a != "wbpr-maxflow"])
-def test_lm_configs_are_not_ported_yet(arch):
-    for get in (registry.get_config, registry.get_smoke_config):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            get(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 items 2-6"):
+LM_ARCHS = [a for a in rregistry.ARCH_IDS if a != "wbpr-maxflow"]
+
+
+def _fields(cfg) -> dict:
+    """A config's fields, its dtype by name (``torch.bfloat16`` and
+    ``jnp.bfloat16`` both ``"bfloat16"``)."""
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    dt = out["dtype"]
+    out["dtype"] = (str(dt).removeprefix("torch.")
+                    if isinstance(dt, torch.dtype) else np.dtype(dt).name)
+    return out
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_configs_equal_the_reference(arch):
+    for get, rget in ((registry.get_config, rregistry.get_config),
+                      (registry.get_smoke_config,
+                       rregistry.get_smoke_config)):
+        assert _fields(get(arch)) == _fields(rget(arch))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_dryrun_cells_are_not_ported_yet(arch):
+    with pytest.raises(NotImplementedError, match="Queue 1 items 3-6"):
         dryrun.run_cell(arch, "train_4k", device="cpu")
 
 
