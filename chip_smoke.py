@@ -136,16 +136,26 @@ on the card, each verified against Dinic.
 
 Right after the kernels' edge cases, while the set-up pool makes the
 graphs, ``lm_serve``, the language-model path
-(``repro_torch.launch.lm_serve_checks``): qwen3-4b at full width and depth
-in bf16 (4,022,468,096 parameters, each leaf of its spec's shape and
-dtype), served through ``python -m repro_torch.launch.serve --arch
-qwen3-4b --batch 4 --prompt-len 2048 --tokens 32 --census`` (prefill wall,
-decode ms per token, tokens/s, peak bytes, the aten ops of a decode step;
-the decode loop under sync-debug "error"); the same weights in float32
-with TF32 off, the flash-prefilled last logits against the train
-forward's and 32 decode steps against one teacher-forced naive forward
-over the 2080 tokens; and 2 layers at full width on the card against the
-CPU.  It launches none of the kernels.
+(``repro_torch.launch.lm_serve_checks``), one row a family at full width:
+qwen3-4b whole in bf16 (4,022,468,096 parameters, each leaf of its spec's
+shape and dtype), served through ``python -m repro_torch.launch.serve
+--arch qwen3-4b --batch 4 --prompt-len 2048 --tokens 32 --census``
+(prefill wall, decode ms per token, tokens/s, peak bytes, the aten ops of
+a decode step, each beside its bound; the decode loop under sync-debug
+"error"); the same weights in float32 with TF32 off, the flash-prefilled
+last logits against the train forward's and 32 decode steps against one
+teacher-forced naive forward over the 2080 tokens; and 2 layers at full
+width on the card against the CPU.  The same for rwkv6-1.6b whole
+(2048 + 64 tokens), whisper-tiny whole (1500 random frames, 384 + 64
+tokens), mixtral-8x7b at 16 of 32 layers and llama-3.2-vision-90b at 10
+of 100 (1600 random patches; 2048 + 32 tokens each), their holds on 4
+and 5 layers (whisper's, mixtral's and llama-vision's at unit gain,
+where the reference's draw of random weights makes the attention near
+one-hot; mixtral's in float64 at B = 1, where in float32 a router tie
+flips an expert; rwkv6's in float64, where its float32 chain has a
+tail); then jamba-1.5-large-398b's ``mamba+mlp`` layer
+at full width and its SMOKE config whole.  It launches none of the
+kernels.
 
 Outside the chaos run no serving phase may take a rung of the service's
 degradation ladder (retries, demotions, host fallbacks, dispatch errors):
@@ -582,7 +592,8 @@ def main_path_and_modes(small, torch, problem, batch, oracles):
     for mode in BATCH_MODES:
         require([x.value for x in sols[mode]] == [v for v, _ in got],
                 f"batched {mode} values != scipy Dinic")
-    return paths, {"main": main, "p_small": p_small, "v_small": v_small,
+    return paths, {"main": main, "main_wall_s": wall,
+                   "p_small": p_small, "v_small": v_small,
                    "sols": sols, "batch_values": [v for v, _ in got]}
 
 
@@ -2490,9 +2501,10 @@ def dryrun_phase(torch, smi):
           "cells": stdout.strip().splitlines()})
 
 
-#: the max-flow examples, each verifying itself against Dinic
+#: the examples, each verifying itself: the max-flow ones against Dinic,
+#: the LM serving one its caches against teacher forcing
 EXAMPLES = ("quickstart_torch.py", "bipartite_matching_torch.py",
-            "serve_maxflow_torch.py")
+            "serve_maxflow_torch.py", "serve_decode_torch.py")
 
 
 def examples_start():
@@ -2515,25 +2527,51 @@ def examples_phase(started):
 
 
 def lm_phase(torch, quick: bool, smi: str) -> None:
-    """Phase ``lm_serve``: qwen3-4b at full width and depth in
-    bf16 built and checked against its specs, served through
-    ``launch/serve.main`` (B = 4, a 2048-token prompt, 32 tokens; the
-    decode loop under ``set_sync_debug_mode("error")``, one step under
-    the op census), held in float32 on the same weights (prefill against
-    the train forward's last position, decode against one teacher-forced
-    forward over the 2080 tokens, TF32 off), and a 2-layer cut run on the
-    card against the CPU (``repro_torch.launch.lm_serve_checks``).  The
+    """Phase ``lm_serve``: one row a family of
+    ``repro_torch.launch.lm_serve_checks.ROWS`` at full width, B = 4 —
+    qwen3-4b and rwkv6-1.6b and whisper-tiny whole, mixtral-8x7b at 16 of
+    32 layers, llama-3.2-vision-90b at 10 of 100 — each built and checked
+    against its specs and element count, served through
+    ``launch/serve.main --census`` (the decode loop under
+    ``set_sync_debug_mode("error")``, no host read in a step; each
+    figure beside the family's bound), held in float32 with TF32 off
+    (prefill against the train forward's last position, decode against
+    one teacher-forced forward; rwkv6 in float64; llama-vision on 5
+    layers; mixtral on a 4-layer cut at B = 1 in float64, its decode
+    chain at
+    ``capacity_factor`` = ``n_experts`` = 8; whisper, mixtral and
+    llama-vision at unit gain, each row's ``gain`` and ``hold_dtype``)
+    and a cut run on the card against the CPU in float32 (at the row's
+    gain); then jamba-1.5-large-398b's
+    ``mamba+mlp`` layer at full width (``lm_serve_checks.mamba_layer``:
+    B = 4 x 2048 prefilled, 64 steps decoded, held in float32 and
+    against the CPU) and its SMOKE config served whole on the card.  The
     LM path launches none of the kernels; ``--quick`` runs the SMOKE
-    config."""
-    from repro_torch.launch import lm_serve_checks
+    configs."""
+    from repro_torch.launch import lm_serve_checks as C
 
-    sizes = (dict(smoke=True, batch=2, prompt_len=64, tokens=8) if quick
-             else dict(batch=4, prompt_len=2048, tokens=32,
-                       expect_params=4_022_468_096))
+    def out(row):
+        emit({**row, "nvidia_smi": smi})
+
     torch.cuda.empty_cache()
     reset_counts()
-    lm_serve_checks.run(lambda row: emit({**row, "nvidia_smi": smi}),
-                        **sizes)
+    for arch, row in C.ROWS.items():
+        t0 = time.perf_counter()
+        if quick:  # SMOKE, each row's draw, dtype and cut kind; 64 + 64
+            keep = ("gain", "hold_dtype", "cut_pattern")
+            C.run(out, arch=arch, smoke=True, batch=2, prompt_len=64,
+                  tokens=64, **{k: v for k, v in row.items() if k in keep})
+        else:
+            C.run(out, arch=arch, batch=4, **row)
+        emit({"phase": "lm_row_done", "arch": arch,
+              "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    if quick:
+        C.mamba_layer(out, smoke=True, batch=2, prompt_len=64, tokens=64)
+    else:
+        C.mamba_layer(out, expect_params=C.MAMBA_PARAMS)
+    emit({"phase": "lm_row_done", "arch": C.MAMBA_ARCH,
+          "seconds": time.perf_counter() - t0})
     no_launches(launch_counts(), "the LM path")
     torch.cuda.empty_cache()
 
@@ -2948,7 +2986,8 @@ def smoke(args, torch, t_start, made) -> int:
     # -- 3c. LM serving, while the set-up pool makes the main graph ---------
     t0 = time.perf_counter()
     lm_phase(torch, args.quick, smi)
-    emit({"phase": "lm_serve_done", "seconds": time.perf_counter() - t0})
+    lm_s = time.perf_counter() - t0
+    emit({"phase": "lm_serve_done", "seconds": lm_s})
 
     # -- 4. the main path at full size --------------------------------------
     t0 = time.perf_counter()
@@ -2990,6 +3029,10 @@ def smoke(args, torch, t_start, made) -> int:
             *dist_graph[1:]))
         paths, ctx = main_path_and_modes(small, torch, problem, batch,
                                          oracles)
+        # the main solve's wall measures this host: the LM phase's beside
+        # it, so that a run on another host can be scaled
+        emit({"phase": "lm_scale", "lm_serve_s": lm_s,
+              "main_solve_s": ctx["main_wall_s"]})
         ctx.update(drain_batch=drain_batch, batch_traces=btraces,
                    mid_in=made["mid"], matching_in=made["matching"],
                    serve_in=made["serve"])

@@ -51,8 +51,8 @@ the mesh's.  XLA's ``flops``, ``bytes_accessed`` and lower / compile
 times have no eager counterpart and are left out, not estimated.
 
 The language-model cells wait for the rest of the LM port (ROADMAP.md,
-Queue 1 items 3-6: the other mixers, training, and the sharding rules
-with the LM cells): an arch of a language-model family raises
+Queue 1 items 4-6: training, and the sharding rules with the LM cells;
+every mixer runs since item 3): an arch of a language-model family raises
 ``NotImplementedError``, and ``--all`` covers the ``graph`` family
 (``wbpr-maxflow``) only.
 """
@@ -82,9 +82,9 @@ EXCESS_SHARE = 0.25
 REPS = 10
 GRAPH_MODES = ("replicated", "sharded", "sparse")
 LM_GUIDANCE = ("the language-model dry-run cells are not ported to "
-               "repro_torch yet: they wait for the other mixers, training "
-               "and the sharding rules (ROADMAP.md, Queue 1 items 3-6); the "
-               "port's dry run covers --arch wbpr-maxflow")
+               "repro_torch yet: they wait for training and the sharding "
+               "rules (ROADMAP.md, Queue 1 items 4-6); the port's dry run "
+               "covers --arch wbpr-maxflow")
 
 
 def _mesh_tag(multi_pod: bool) -> str:

@@ -2,11 +2,18 @@
 (port of ``python -m repro.launch.serve``; it serves on the CUDA card
 unless ``--device cpu`` asks for the CPU).
 
-``python -m repro_torch.launch.serve --arch qwen3-4b --smoke --device cpu``
+``python -m repro_torch.launch.serve --smoke --device cpu`` (rwkv6-1.6b)
 ``python -m repro_torch.launch.serve --arch qwen3-4b --batch 4 --prompt-len 2048 --tokens 32``
+``python -m repro_torch.launch.serve --arch mixtral-8x7b --layers 16 --prompt-len 2048 --tokens 32``
 
 A random prompt batch (seeded ``torch.Generator`` on the device, as are
-the random weights) is prefilled, then decoded one token a step.  Prints
+the random weights) is prefilled, then decoded one token a step.  An
+encoder-decoder arch (whisper) gets random audio frames ``(B, enc_len,
+D)`` and a vision arch random image patches ``(B, img_tokens, D)``,
+standard normal in the model's dtype, drawn after the tokens from the
+same generator; the prefill takes them, as the reference's launcher
+does.  ``--layers`` cuts the depth (a multiple of the arch's block
+pattern), never the width.  Prints
 the reference's two lines and returns a record: the prefill's wall, the
 decode's wall and its ms per token (the median of the steps after the
 first; CUDA events on the card), tokens per second, the peak allocated
@@ -15,14 +22,16 @@ census, ``repro_torch.analysis.ir``).  On the card the decode loop runs
 under ``torch.cuda.set_sync_debug_mode("error")``: a step that read the
 device from the host would raise.
 
-The dense configs (``attn+mlp`` blocks) run; an arch whose layers wait
-for the other mixers (the default ``rwkv6-1.6b`` among them) raises
-``NotImplementedError`` before anything is allocated.
+Every family runs: dense, MoE, RWKV6, the Mamba hybrid, the
+encoder-decoder and the vision one.  An SSM arch (``rwkv6``, ``jamba``)
+needs a prompt that is a multiple of ``ssm_chunk`` (64), or shorter than
+it: the chunked form asserts it, as the reference's does.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import statistics
 import time
 
@@ -31,20 +40,35 @@ import torch
 
 def inputs(cfg, batch: int, prompt_len: int, *, seed: int = 0,
            device=None):
-    """``(params, tokens)``: random weights, then a random ``(batch,
-    prompt_len)`` int32 prompt, drawn from one ``torch.Generator`` seeded
-    with ``seed`` on ``device`` (``None``: the card)."""
+    """``(params, tokens, ext_embed)``: random weights, then a random
+    ``(batch, prompt_len)`` int32 prompt, then the external embeddings
+    (:func:`ext_embed`, ``None`` for a text-only arch), drawn from one
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (``None``: the
+    card)."""
     from repro_torch.kernels.runtime import resolve_device
     from repro_torch.models import transformer as T
 
-    T.require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = T.init_params(cfg, gen, device=dev)
     toks = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                          device=dev, dtype=torch.int32)
-    return params, toks
+    return params, toks, ext_embed(cfg, batch, gen, dev)
+
+
+def ext_embed(cfg, batch: int, gen: torch.Generator, device):
+    """The stub frontends' output, as the reference's launcher draws it:
+    ``(batch, enc_len, d_model)`` audio frames for an encoder-decoder arch,
+    ``(batch, img_tokens, d_model)`` image patches for a vision arch,
+    standard normal in ``cfg.dtype`` (the same distribution, not the same
+    numbers); ``None`` for a text-only arch."""
+    n = (cfg.enc_len if cfg.is_encoder_decoder
+         else cfg.img_tokens if cfg.img_tokens else 0)
+    if not n:
+        return None
+    return torch.randn((batch, n, cfg.d_model), generator=gen,
+                       dtype=torch.float32, device=device).to(cfg.dtype)
 
 
 @contextlib.contextmanager
@@ -94,6 +118,7 @@ def serve(cfg, *, batch: int, prompt_len: int, tokens: int, device=None,
     """Prefill a random batch and decode ``tokens`` tokens greedily (the
     first from the prefill's logits); returns the record."""
     from repro_torch.kernels.runtime import resolve_device
+    from repro_torch.models import transformer as T
     from repro_torch.training.train_step import (make_decode_step,
                                                  make_prefill_step)
 
@@ -102,12 +127,13 @@ def serve(cfg, *, batch: int, prompt_len: int, tokens: int, device=None,
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
         start_bytes = torch.cuda.memory_allocated(dev)
-    params, toks = inputs(cfg, batch, prompt_len, device=dev)
+    params, toks, ext = inputs(cfg, batch, prompt_len, device=dev)
+    n_params = T.param_count(params)
     prefill = make_prefill_step(cfg, max_len=prompt_len + tokens + 1)
     decode = make_decode_step(cfg)
     _sync(dev)
     t0 = time.perf_counter()
-    last, cache = prefill(params, toks)
+    last, cache = prefill(params, toks, ext)
     nxt = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
     _sync(dev)
     t1 = time.perf_counter()
@@ -126,7 +152,8 @@ def serve(cfg, *, batch: int, prompt_len: int, tokens: int, device=None,
     t2 = time.perf_counter()
     step_ms = clock.intervals_ms()
     seqs = torch.cat(out, dim=1).cpu()
-    rec = {"arch": cfg.name, "device": dev.type, "batch": batch,
+    rec = {"arch": cfg.name, "device": dev.type, "n_layers": cfg.n_layers,
+           "params": n_params, "batch": batch,
            "prompt_len": prompt_len, "tokens": tokens,
            "prefill_s": t1 - t0, "decode_s": t2 - t1,
            "decode_steps": tokens - 1,
@@ -158,6 +185,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (a multiple "
+                    "of the arch's block pattern)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--census", action="store_true",
@@ -168,6 +198,8 @@ def main(argv=None) -> dict:
 
     cfg = (registry.get_smoke_config(args.arch) if args.smoke
            else registry.get_config(args.arch))
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     rec = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
                 tokens=args.tokens, device=args.device, census=args.census)
     dt = rec["decode_s"]

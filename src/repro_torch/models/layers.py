@@ -37,18 +37,33 @@ def init_std(spec: PSpec) -> float:
     return spec.scale / np.sqrt(fan_in)
 
 
+#: the largest leaf drawn in one piece (elements)
+DRAW_WHOLE = 2**28
+
+
 def init_param(generator: torch.Generator, spec: PSpec, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
     """One leaf: zeros, ones, or a float32 normal draw times
     :func:`init_std` cast to ``dtype`` (the reference's distribution;
-    ``torch.Generator`` cannot give its numbers)."""
+    ``torch.Generator`` cannot give its numbers).  A leaf of more than
+    :data:`DRAW_WHOLE` elements is drawn in slices of its first dim,
+    from the same generator."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return x.mul_(float(init_std(spec))).to(dtype)
+    std = float(init_std(spec))
+    # drawn in slices of the first dim of at most DRAW_WHOLE elements (one
+    # slice if a row is larger; the whole leaf if it is no larger), so that
+    # a large leaf's float32 draw never stands beside it whole (mixtral's
+    # stacked expert weights are 7.5G elements: 30 GB in float32)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    step = max(1, DRAW_WHOLE // int(np.prod(spec.shape[1:])))
+    for i in range(0, spec.shape[0], step):
+        part = out[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               dtype=torch.float32, device=device).mul_(std))
+    return out
 
 
 # ---------------------------------------------------------------------------

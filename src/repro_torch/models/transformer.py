@@ -1,6 +1,6 @@
 """Model assembly: pattern-based layer stacks over stacked block weights.
 
-Port of the dense path of the JAX package's ``repro.models.transformer``.
+Port of the JAX package's ``repro.models.transformer``.
 Parameters live in the reference's tree:
 
     {"embed": (V, D), "final_norm": (D,),
@@ -21,11 +21,16 @@ on.  A decode step writes its token's K and V into the cache in place (the
 reference's launcher donates the cache to its decode step) and returns
 the same tensors with ``pos + 1``.
 
-Ported: the ``attn`` mixer with the ``mlp`` ffn (every dense config), the
-spec and cache trees of every family but the ones whose modules are not
-ported (``mamba``, ``rwkv``, ``moe``: ROADMAP.md, Queue 1 item 3), which
-raise ``NotImplementedError``, as do the cross-attention and encoder
-layers.  The sharded shape trees wait for the sharding rules (item 6).
+Every family of the reference runs: the ``attn``, ``cross`` and
+``attn_cross`` mixers (GQA, sliding window, cross-attention onto image
+patches or the encoder's frames), ``mamba`` (``models/mamba.py``) and
+``rwkv`` (``models/rwkv.py``), with the ``mlp`` or ``moe``
+(``models/moe.py``) ffn, and whisper's bidirectional encoder.  A decode
+step updates every cache leaf of its block in place: the attention's
+K/V slot, and the recurrent states (``ssm``, ``conv``, ``wkv``,
+``tm_x``, ``cm_x``) copied into their block's slice; the cross K/V made
+at prefill are read only.  The sharded shape trees wait for the sharding
+rules (ROADMAP.md, Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -35,11 +40,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers as L
-
-#: the message of every branch that waits for the other mixers
-ITEM3 = ("is not ported to repro_torch yet: the MoE, Mamba, RWKV and "
-         "cross-attention/encoder layers come with ROADMAP.md, Queue 1 "
-         "item 3")
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv as R
 
 
 # ---------------------------------------------------------------------------
@@ -96,14 +99,16 @@ def layer_specs(cfg, kind: str) -> dict:
         s["attn"] = L.attn_specs(cfg)
         s["cross"] = L.attn_specs(cfg, cross=True)
         s["cross"]["norm2"] = L.PSpec((cfg.d_model,), (None,), "ones")
-    elif mixer in ("mamba", "rwkv"):
-        raise NotImplementedError(f"the {mixer!r} mixer {ITEM3}")
+    elif mixer == "mamba":
+        s["mamba"] = M.mamba_specs(cfg)
+    elif mixer == "rwkv":
+        s["rwkv"] = R.rwkv_specs(cfg)
     else:
         raise ValueError(kind)
     if ffn == "mlp":
         s["mlp"] = L.mlp_specs(cfg)
     elif ffn == "moe":
-        raise NotImplementedError(f"the 'moe' ffn {ITEM3}")
+        s["moe"] = MOE.moe_specs(cfg)
     return s
 
 
@@ -230,17 +235,6 @@ def cache_zeros(cfg, batch, cache_len, *, device=None, **kw) -> dict:
 # layer application
 # ---------------------------------------------------------------------------
 
-def require_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config whose layers the port
-    cannot run yet (anything but ``attn+mlp`` blocks)."""
-    for kind in cfg.block_pattern:
-        if kind != "attn+mlp":
-            raise NotImplementedError(f"{cfg.name}: the {kind!r} layer "
-                                      f"{ITEM3}")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: the encoder {ITEM3}")
-
-
 def _repeat_kv(cfg, k):
     """Repeat kv heads to n_heads for sequence attention (``jnp.repeat``
     along heads: each kv head ``g`` times in a row)."""
@@ -315,27 +309,97 @@ def _attn_decode(cfg, p, x1, k_cache, v_cache, pos):
     return torch.einsum("bshd,hde->bse", o, p["wo"]), k_cache, v_cache
 
 
+def _cross_attn(cfg, p, x, ext_kv=None, ck=None, cv=None):
+    """Cross-attention; ext_kv (B,L,D) at prefill/train, (ck, cv) at
+    decode.  Every key is valid; GQA groups query heads under kv heads
+    inside the attention, as in the reference."""
+    norm_w = p.get("norm2", p["norm"])
+    xq = L.rms_norm(x, norm_w)
+    if ck is None:
+        q, ck, cv = L.qkv_project(cfg, p, xq, kv_x=ext_kv)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", xq, p["wq"])
+        if "qnorm" in p:
+            q = L.rms_norm(q, p["qnorm"])
+    if q.shape[1] == 1:
+        valid = torch.ones((ck.shape[1],), dtype=torch.bool,
+                           device=x.device)
+        o = L.attn_decode(q, ck, cv, valid)
+    else:
+        o = L.attn_naive(q, ck, cv, causal=False)
+    return torch.einsum("bshd,hde->bse", o, p["wo"]), ck, cv
+
+
 def apply_layer(cfg, kind, p, x, *, positions, ext_kv=None, cache=None,
                 pos=None, mode="train", cache_len=None):
-    """One layer. Returns (x, new_cache, aux); a dense layer's aux is the
-    float 0.0 (no router loss)."""
+    """One layer. Returns (x, new_cache, aux); aux is the MoE router's
+    loss (a float32 scalar), or the float 0.0 for a layer without one.
+
+    In decode, ``new_cache`` holds each leaf's new value: the attention's
+    K/V are the cache's own tensors, written in place; the recurrent
+    states are new tensors for the caller to store."""
     mixer, ffn = _mixer_ffn(kind)
-    if mixer != "attn" or ffn != "mlp":
-        raise NotImplementedError(f"the {kind!r} layer {ITEM3}")
+    aux = 0.0
     newc: dict = {}
-    if mode == "decode":
-        o, nk, nv = _attn_decode(cfg, p["attn"], x, cache["k"], cache["v"],
-                                 pos)
-        newc["k"], newc["v"] = nk, nv
-    else:
-        o, kv = _attn_seq(cfg, p["attn"], x, positions,
-                          make_cache=(mode == "prefill"), cache_len=cache_len)
-        if kv is not None:
-            newc["k"], newc["v"] = kv
-    x = x + o
-    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["mlp"]["norm"]),
-                  bf16_reduce=cfg.bf16_reduce)
-    return x, newc, 0.0
+    if mixer in ("attn", "attn_cross"):
+        if mode == "decode":
+            o, nk, nv = _attn_decode(cfg, p["attn"], x, cache["k"],
+                                     cache["v"], pos)
+            newc["k"], newc["v"] = nk, nv
+        else:
+            o, kv = _attn_seq(cfg, p["attn"], x, positions,
+                              make_cache=(mode == "prefill"),
+                              cache_len=cache_len)
+            if kv is not None:
+                newc["k"], newc["v"] = kv
+        x = x + o
+    if mixer in ("cross", "attn_cross"):
+        if mode == "decode":
+            o, _, _ = _cross_attn(cfg, p["cross"], x, ck=cache["ck"],
+                                  cv=cache["cv"])
+            newc["ck"], newc["cv"] = cache["ck"], cache["cv"]
+        else:
+            o, ck, cv = _cross_attn(cfg, p["cross"], x, ext_kv=ext_kv)
+            if mode == "prefill":
+                newc["ck"], newc["cv"] = ck, cv
+        x = x + o
+    if mixer == "mamba":
+        xin = L.rms_norm(x, p["mamba"]["norm"])
+        if mode == "decode":
+            o, h, conv = M.mamba_decode(cfg, p["mamba"], xin, cache["ssm"],
+                                        cache["conv"])
+            newc["ssm"], newc["conv"] = h, conv
+        elif mode == "prefill":
+            o, newc["ssm"], newc["conv"] = M.mamba_seq(
+                cfg, p["mamba"], xin, with_tail=True)
+        else:
+            o, _ = M.mamba_seq(cfg, p["mamba"], xin)
+        x = x + o
+    if mixer == "rwkv":
+        xin = L.rms_norm(x, p["rwkv"]["tm_norm"])
+        if mode == "decode":
+            o, s_new, tmx = R.time_mix_decode(cfg, p["rwkv"], xin,
+                                              cache["wkv"], cache["tm_x"])
+            newc["wkv"], newc["tm_x"] = s_new, tmx
+        else:
+            o, (s_new, tmx) = R.time_mix_seq(cfg, p["rwkv"], xin)
+            if mode == "prefill":
+                newc["wkv"], newc["tm_x"] = s_new, tmx
+        x = x + o
+        xcm = L.rms_norm(x, p["rwkv"]["cm_norm"])
+        prev = cache["cm_x"] if mode == "decode" else None
+        o, cmx = R.channel_mix(cfg, p["rwkv"], xcm, prev)
+        if mode in ("decode", "prefill"):
+            newc["cm_x"] = cmx
+        x = x + o
+    if ffn == "mlp":
+        x = x + L.mlp(p["mlp"], L.rms_norm(x, p["mlp"]["norm"]),
+                      bf16_reduce=cfg.bf16_reduce)
+    elif ffn == "moe":
+        o, a = MOE.moe_ffn(cfg, p["moe"], L.rms_norm(x, p["moe"]["norm"]))
+        x = x + o
+        aux = aux + a
+    return x, newc, aux
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +407,17 @@ def apply_layer(cfg, kind, p, x, *, positions, ext_kv=None, cache=None,
 # ---------------------------------------------------------------------------
 
 def _encoder(cfg, params, frames):
-    raise NotImplementedError(f"{cfg.name}: the encoder {ITEM3}")
+    """Whisper-style encoder over precomputed frame embeddings (stub
+    frontend): bidirectional ``attn+mlp`` blocks, then ``encoder.norm``."""
+    b, s, _ = frames.shape
+    positions = torch.arange(s, device=frames.device).expand(b, s)
+    x = frames
+    for i in range(cfg.n_enc_layers):
+        p = tree_map(lambda a: a[i], params["encoder"]["blocks"])
+        o, _ = _attn_seq(cfg, p["attn"], x, positions, causal=False)
+        x = x + o
+        x = x + L.mlp(p["mlp"], L.rms_norm(x, p["mlp"]["norm"]))
+    return L.rms_norm(x, params["encoder"]["norm"])
 
 
 def forward(cfg, params, tokens, *, ext_embed=None, mode="train",
@@ -404,7 +478,13 @@ def forward(cfg, params, tokens, *, ext_embed=None, mode="train",
                 for name, t in leaves.items():
                     newblocks[pk][name][i].copy_(t)
         elif mode == "decode":
-            newblocks = bc_all  # written in place
+            # K/V were written in place; the recurrent states are stored
+            # into this block's slice of the stacked cache
+            for pk, leaves in nc.items():
+                for name, t in leaves.items():
+                    if t is not bc_i[pk][name]:
+                        bc_i[pk][name].copy_(t)
+            newblocks = bc_all
 
     if mode == "prefill":
         # serving only consumes the last position's logits; skipping the

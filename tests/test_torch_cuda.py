@@ -1021,7 +1021,7 @@ def test_lm_serve_on_the_card_matches_cpu(cuda):
 
     cfg = dataclasses.replace(registry.get_smoke_config("qwen2.5-14b"),
                               dtype=torch.float32, attn_chunk=8)
-    params, toks = serve.inputs(cfg, 2, 24, device=cuda)
+    params, toks, _ = serve.inputs(cfg, 2, 24, device=cuda)
     outs = {}
     for dev in (cuda, torch.device("cpu")):
         p = T.tree_map(lambda a: a.to(dev), params)
@@ -1040,3 +1040,46 @@ def test_lm_serve_on_the_card_matches_cpu(cuda):
     assert rec["device"] == "cuda" and rec["peak_allocated_bytes"] > 0
     assert rec["decode_step_host_reads"] == 0
     assert len(rec["decode_step_ms"]) == 15
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "mixtral-8x7b", "grok-1-314b",
+                                  "jamba-1.5-large-398b", "whisper-tiny",
+                                  "llama-3.2-vision-90b"])
+def test_family_smoke_serve_on_the_card_matches_cpu(cuda, arch):
+    """Each family the other mixers unlock, at its SMOKE size in float32
+    (at unit gain: ``lm_serve_checks.unit_gain``): the prefill and a
+    decode chain on the card against the same weights,
+    tokens and external embeddings on the CPU (max |diff| within 1e-4 of
+    the logits' rms; an MoE arch at a capacity that drops nothing), the
+    decode loop under sync-debug "error"; then the launcher serving the
+    SMOKE config on the card with no host read in a decode step."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import lm_serve_checks, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.training.train_step import (make_decode_step,
+                                                 make_prefill_step)
+
+    cfg = lm_serve_checks.nodrop(dataclasses.replace(
+        registry.get_smoke_config(arch), dtype=torch.float32))
+    params, toks, ext = serve.inputs(cfg, 2, 40, device=cuda)
+    lm_serve_checks.unit_gain(cfg, params)  # as the card checks draw it
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = T.tree_map(lambda a: a.to(dev), params)
+        t = toks.to(dev)
+        e = None if ext is None else ext.to(dev)
+        last, cache = make_prefill_step(cfg, max_len=40)(p, t[:, :32], e)
+        logits = [last]
+        decode = make_decode_step(cfg)
+        with serve.no_host_sync(dev):
+            for i in range(32, 40):
+                _, lg, cache = decode(p, cache, t[:, i:i + 1])
+                logits.append(lg)
+        outs[dev.type] = torch.stack(logits, 1).cpu()
+    rms = outs["cpu"].pow(2).mean().sqrt()
+    assert (outs["cuda"] - outs["cpu"]).abs().max() <= 1e-4 * rms
+    rec = serve.main(["--arch", arch, "--smoke", "--census", "--tokens", "8"])
+    assert rec["device"] == "cuda" and rec["decode_step_host_reads"] == 0
+    assert len(rec["decode_step_ms"]) == 7

@@ -143,7 +143,7 @@ def test_lm_configs_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_lm_dryrun_cells_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 items 3-6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 items 4-6"):
         dryrun.run_cell(arch, "train_4k", device="cpu")
 
 

@@ -1,7 +1,9 @@
-"""The port's max-flow examples (``examples/*_torch.py``), each run as a
-script in a subprocess on the CPU (``--device cpu``): each verifies
-itself against the Dinic oracle and exits 0.  Without that flag and
-without a card each fails, rather than falling back to the CPU."""
+"""The port's examples (``examples/*_torch.py``), each run as a script in
+a subprocess on the CPU (``--device cpu``): each max-flow example
+verifies itself against the Dinic oracle, the LM serving example
+(``serve_decode_torch.py``) its caches against teacher forcing, and each
+exits 0.  Without that flag and without a card each fails, rather than
+falling back to the CPU."""
 import os
 import pathlib
 import subprocess
@@ -38,6 +40,32 @@ def test_example_without_a_card_fails(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible: the default device is usable")
     r = _run(name)
+    assert r.returncode != 0
+    assert "no CUDA device is visible" in r.stderr
+    assert "verified" not in r.stdout
+
+
+LM_EXAMPLE = "serve_decode_torch.py"
+
+
+def test_serve_decode_example_runs_on_the_cpu():
+    """rwkv6, mixtral and jamba at SMOKE served through the launcher, each
+    cache held in float32 against teacher forcing."""
+    r = _run(LM_EXAMPLE, "--device", "cpu")
+    assert r.returncode == 0, r.stderr[-3000:]
+    for arch in ("rwkv6-1.6b", "mixtral-8x7b", "jamba-1.5-large-398b"):
+        assert f"arch={arch}-smoke batch=4" in r.stdout
+        assert f"{arch}: served on cpu" in r.stdout
+    assert r.stdout.strip().splitlines()[-1].startswith(
+        "verified: 3 archs' prefill + decode caches on cpu")
+
+
+def test_serve_decode_example_without_a_card_fails():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device is usable")
+    r = _run(LM_EXAMPLE)
     assert r.returncode != 0
     assert "no CUDA device is visible" in r.stderr
     assert "verified" not in r.stdout

@@ -4,8 +4,8 @@ spec trees built from them, against the JAX package's, on the CPU.
 Tolerance: exact equality — of every field (``dtype`` compared by name),
 of ``param_count()`` and ``active_param_count()``, of the parameter spec
 tree (shapes, logical axes, init, scale) and its element count for every
-arch whose specs the port builds, and of the cache spec tree for every
-arch."""
+arch, of the cache spec tree for every arch, and of the sizes the card
+serves (whole, cut in depth, or one layer)."""
 import dataclasses
 
 import jax
@@ -23,11 +23,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 LM_ARCHS = rregistry.all_arch_ids()
-#: the archs whose blocks need a module of ROADMAP Queue 1 item 3 for
-#: their specs (MoE, Mamba, RWKV)
-ITEM3_SPECS = {"mixtral-8x7b", "grok-1-314b", "jamba-1.5-large-398b",
-               "rwkv6-1.6b"}
-SPEC_ARCHS = [a for a in LM_ARCHS if a not in ITEM3_SPECS]
+#: the archs whose blocks take the MoE, Mamba or RWKV modules
+MIXER_ARCHS = ["grok-1-314b", "jamba-1.5-large-398b", "mixtral-8x7b",
+               "rwkv6-1.6b"]
 
 
 def _dtype_name(dt) -> str:
@@ -89,7 +87,7 @@ def _ref_spec_tree(specs):
             for path, s in leaves}
 
 
-@pytest.mark.parametrize("arch", SPEC_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_param_specs_equal_the_reference(arch):
     for mine, ref in _configs(arch):
         got = _spec_tree(T.param_specs(mine), lambda x: isinstance(x, L.PSpec))
@@ -109,13 +107,59 @@ def test_qwen3_4b_has_the_stated_size():
         (36, 2560, 32, 8, 128, 9728, 151936, True, 1e6)
 
 
-@pytest.mark.parametrize("arch", sorted(ITEM3_SPECS))
-def test_item3_specs_raise(arch):
-    for get in (registry.get_config, registry.get_smoke_config):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            T.param_specs(get(arch))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            T.init_params(get(arch), 0, device="cpu")
+#: the element counts the card builds (``chip_smoke.py``'s ``lm_serve``):
+#: (arch, layers kept or None for whole, the one layer kind or None)
+CARD_SIZES = {
+    ("rwkv6-1.6b", None, None): 1_449_723_904,
+    ("whisper-tiny", None, None): 41_159_808,
+    ("mixtral-8x7b", 16, None): 23_351_398_400,
+    ("mixtral-8x7b", 4, None): 5_936_156_672,
+    ("llama-3.2-vision-90b", 10, None): 9_607_225_344,
+    ("llama-3.2-vision-90b", 5, None): 5_328_953_344,
+    ("jamba-1.5-large-398b", None, "mamba+mlp"): 1_024_327_680,
+}
+
+
+def _count(specs) -> int:
+    return sum(int(np.prod(s.shape)) for _, s in T.tree_leaves(
+        specs, lambda x: isinstance(x, L.PSpec)))
+
+
+def _ref_count(specs) -> int:
+    return sum(int(np.prod(s.shape)) for s in jax.tree.leaves(
+        specs, is_leaf=lambda x: isinstance(x, JL.PSpec)))
+
+
+@pytest.mark.parametrize("arch,layers,kind", sorted(CARD_SIZES, key=str))
+def test_card_sizes_equal_the_reference(arch, layers, kind):
+    mine, ref = _configs(arch)[0]
+    if kind is not None:
+        got = _count(T.layer_specs(mine, kind))
+        want = _ref_count(JT.layer_specs(ref, kind))
+    else:
+        if layers is not None:
+            mine = dataclasses.replace(mine, n_layers=layers)
+            ref = dataclasses.replace(ref, n_layers=layers)
+        got, want = _count(T.param_specs(mine)), _ref_count(
+            JT.param_specs(ref))
+    assert got == want == CARD_SIZES[(arch, layers, kind)]
+
+
+@pytest.mark.parametrize("arch", MIXER_ARCHS)
+def test_mixer_specs_build_their_smoke_trees(arch):
+    """The MoE, Mamba and RWKV specs (once refused) give a SMOKE tree of
+    their shapes and dtype, with the reference's leaf paths."""
+    cfg = registry.get_smoke_config(arch)
+    specs = dict(T.tree_leaves(T.param_specs(cfg),
+                               lambda x: isinstance(x, L.PSpec)))
+    p = dict(T.tree_leaves(T.init_params(cfg, 0, device="cpu")))
+    assert set(p) == set(specs) == set(_ref_spec_tree(
+        JT.param_specs(rregistry.get_smoke_config(arch))))
+    for path, t in p.items():
+        assert tuple(t.shape) == specs[path].shape, path
+        assert t.dtype == torch.bfloat16, path
+    mixers = {k.split(".")[2] for k in p if k.startswith("blocks.")}
+    assert mixers & {"moe", "mamba", "rwkv"}
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)

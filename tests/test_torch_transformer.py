@@ -9,7 +9,8 @@ whole cache tree, ``pos`` included) and a decode chain of 16 steps from a
 16-token prefix; then the flash branch (``attn_chunk=8`` at S = 32), the
 sliding-window ring buffer (``window=8``), decode at ``pos == cache_len``
 (the clamp), the port's own prefill/train and decode/teacher-forcing
-properties, init, the module and the families that wait for item 3.
+properties, init, the module, and the cross-attention and encoder
+layers through ``forward``.
 
 Tolerances.  float32: rtol = atol = 1e-4.  bfloat16, against the
 reference: the reference's OWN bf16 error on the same weights and inputs,
@@ -431,19 +432,40 @@ def test_module_owns_the_tree_under_the_reference_paths():
 
 
 # ---------------------------------------------------------------------------
-# what waits for ROADMAP Queue 1 item 3
+# the cross-attention and encoder layers (once refused: Queue 1 item 3)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-tiny"])
 def test_cross_and_encoder_layers_raise(arch):
-    """Their specs are ported (and equal the reference's); running them
-    is not."""
+    """They run (the families' parity with the reference is
+    ``tests/test_torch_families.py``): the train forward depends on the
+    external embeddings and matches the reference at 1e-4 on ones the
+    reference gets too; decode needs none; an unknown layer kind raises
+    ``ValueError``; nothing is left to refuse."""
     cfg = dataclasses.replace(registry.get_smoke_config(arch),
                               dtype=torch.float32)
-    p = T.init_params(cfg, 0, device="cpu")
-    toks = torch.from_numpy(_tokens(cfg.vocab, (1, 8)))
-    ext = torch.zeros(1, cfg.img_tokens or cfg.enc_len, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        T.forward(cfg, p, toks, ext_embed=ext)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        T.require_ported(cfg)
+    jcfg = dataclasses.replace(rregistry.get_smoke_config(arch),
+                               dtype=jnp.float32)
+    w = jax.tree.map(np.asarray, JT.init_params(jcfg, jax.random.PRNGKey(4)))
+    p = T.params_from_numpy(cfg, w, device="cpu")
+    toks = _tokens(cfg.vocab, (1, 8))
+    rng = np.random.default_rng(7)
+    shape = (1, cfg.img_tokens or cfg.enc_len, cfg.d_model)
+    ext = (0.5 * rng.standard_normal(shape)).astype(np.float32)
+    with torch.no_grad():
+        got = T.forward(cfg, p, torch.from_numpy(toks),
+                        ext_embed=torch.from_numpy(ext))[0]
+        other = T.forward(cfg, p, torch.from_numpy(toks),
+                          ext_embed=torch.zeros(shape))[0]
+        _, cache, _ = T.forward(cfg, p, torch.from_numpy(toks),
+                                ext_embed=torch.from_numpy(ext),
+                                mode="prefill", cache_len=9)
+        T.forward(cfg, p, torch.from_numpy(toks[:, :1]), mode="decode",
+                  cache=cache)
+    want = JT.forward(jcfg, jax.tree.map(jnp.asarray, w), jnp.asarray(toks),
+                      ext_embed=jnp.asarray(ext))[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    assert not torch.allclose(got, other)
+    assert not hasattr(T, "require_ported") and not hasattr(T, "ITEM3")
+    with pytest.raises(ValueError):
+        T.layer_specs(cfg, "conv+mlp")
