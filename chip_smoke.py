@@ -132,7 +132,10 @@ another in a process of its own, each one rank of the mesh on the card
 under a fake process group, every record's meta that of its cell, its
 collective bytes those of its shapes' formulas, no kernel launched;
 ``examples`` — the three max-flow examples
-on the card, each verified against Dinic.
+on the card, each verified against Dinic, the LM serving one (its caches
+against teacher forcing) and the LM training one (qwen3-4b SMOKE trained
+through ``launch/train.py``, its loss below a uniform guess, a run
+resumed from its checkpoint ending on the same loss).
 
 Right after the kernels' edge cases, while the set-up pool makes the
 graphs, ``lm_serve``, the language-model path
@@ -156,6 +159,22 @@ flips an expert; rwkv6's in float64, where its float32 chain has a
 tail); then jamba-1.5-large-398b's ``mamba+mlp`` layer
 at full width and its SMOKE config whole.  It launches none of the
 kernels.
+
+After it, ``train``, LM training on the card
+(``repro_torch.launch.train_checks``), each row at full width through
+``make_train_step`` at B = 4 x 128 on one fixed batch: qwen3-4b whole
+with AdamW (4,022,468,096 parameters, 8.04 GB of bf16 weights and 32.2
+GB of float32 moments), jamba-1.5-large-398b's ``mamba+mlp`` layer with
+Adafactor and mixtral-8x7b cut to 1 layer with AdamW (its aux loss above
+0); each row's step wall, device time, idle share, peak bytes, aten ops
+and host reads of a step (0, and the timed steps under sync-debug
+"error"), the loss falling, and the step's bound (``8 N T`` operations
+over the bf16 peak plus the optimizer's bytes over the HBM rate); then
+qwen3-4b cut to 1 layer at full width in float32, TF32 off, on the card
+against the CPU (loss, every gradient leaf, the global norm, one AdamW
+update on the same gradients), and ``run_loop`` on it in bf16 with a
+fault injected after the first of two checkpoints (one restart, the
+clean run's loss exactly).  It launches none of the kernels.
 
 Outside the chaos run no serving phase may take a rung of the service's
 degradation ladder (retries, demotions, host fallbacks, dispatch errors):
@@ -2502,9 +2521,11 @@ def dryrun_phase(torch, smi):
 
 
 #: the examples, each verifying itself: the max-flow ones against Dinic,
-#: the LM serving one its caches against teacher forcing
+#: the LM serving one its caches against teacher forcing, the LM training
+#: one its loss and its resumed run
 EXAMPLES = ("quickstart_torch.py", "bipartite_matching_torch.py",
-            "serve_maxflow_torch.py", "serve_decode_torch.py")
+            "serve_maxflow_torch.py", "serve_decode_torch.py",
+            "train_lm_torch.py")
 
 
 def examples_start():
@@ -2573,6 +2594,23 @@ def lm_phase(torch, quick: bool, smi: str) -> None:
     emit({"phase": "lm_row_done", "arch": C.MAMBA_ARCH,
           "seconds": time.perf_counter() - t0})
     no_launches(launch_counts(), "the LM path")
+    torch.cuda.empty_cache()
+
+
+def train_phase(torch, quick: bool, smi: str) -> None:
+    """Phase ``train``: ``repro_torch.launch.train_checks.run`` — the rows
+    of its ``ROWS`` at full width (qwen3-4b whole with AdamW, jamba's
+    ``mamba+mlp`` layer with Adafactor, mixtral-8x7b cut to 1 layer),
+    qwen3-4b cut to 1 layer on the card against the CPU in float32, and
+    the fault-injected restart; ``--quick`` runs the SMOKE configs.  The
+    training path launches none of the kernels."""
+    from repro_torch.launch import train_checks
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    train_checks.run(lambda row: emit({**row, "nvidia_smi": smi}),
+                     smoke=quick)
+    no_launches(launch_counts(), "the training path")
     torch.cuda.empty_cache()
 
 
@@ -2988,6 +3026,9 @@ def smoke(args, torch, t_start, made) -> int:
     lm_phase(torch, args.quick, smi)
     lm_s = time.perf_counter() - t0
     emit({"phase": "lm_serve_done", "seconds": lm_s})
+    t0 = time.perf_counter()
+    train_phase(torch, args.quick, smi)
+    emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
 
     # -- 4. the main path at full size --------------------------------------
     t0 = time.perf_counter()

@@ -406,14 +406,24 @@ def apply_layer(cfg, kind, p, x, *, positions, ext_kv=None, cache=None,
 # full model
 # ---------------------------------------------------------------------------
 
+def block_views(stacked: dict, n: int) -> list:
+    """Block ``i``'s tree of ``stacked`` (leaves ``(n, ...)``), for each
+    ``i``: ``torch.unbind`` once per leaf.  Its backward is one ``stack``,
+    where ``a[i]``'s backward makes a zero tensor of the whole stacked
+    leaf for every block and adds the ``n`` of them."""
+    parts = tree_map(torch.unbind, stacked)  # leaves: tuples of n views
+    return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
+
+
 def _encoder(cfg, params, frames):
     """Whisper-style encoder over precomputed frame embeddings (stub
     frontend): bidirectional ``attn+mlp`` blocks, then ``encoder.norm``."""
     b, s, _ = frames.shape
     positions = torch.arange(s, device=frames.device).expand(b, s)
     x = frames
+    views = block_views(params["encoder"]["blocks"], cfg.n_enc_layers)
     for i in range(cfg.n_enc_layers):
-        p = tree_map(lambda a: a[i], params["encoder"]["blocks"])
+        p = views[i]
         o, _ = _attn_seq(cfg, p["attn"], x, positions, causal=False)
         x = x + o
         x = x + L.mlp(p["mlp"], L.rms_norm(x, p["mlp"]["norm"]))
@@ -459,8 +469,9 @@ def forward(cfg, params, tokens, *, ext_embed=None, mode="train",
     aux = 0.0
     bc_all = cache["blocks"] if cache is not None else None
     newblocks: dict = {}
+    views = block_views(params["blocks"], cfg.n_blocks)
     for i in range(cfg.n_blocks):
-        bp_i = tree_map(lambda a: a[i], params["blocks"])
+        bp_i = views[i]
         bc_i = tree_map(lambda a: a[i], bc_all) if bc_all is not None \
             else None
         if remat:

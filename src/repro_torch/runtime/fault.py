@@ -1,6 +1,6 @@
-"""Fault injection for the serving tier (a copy of the chaos harness of
-the JAX package's ``repro.runtime.fault``; its training-loop half,
-``LoopReport`` and ``run_loop``, belongs with training and is not here).
+"""Fault tolerance runtime (a copy of the JAX package's
+``repro.runtime.fault``): injected-fault plans for the serving tier, plus
+the training loop's checkpoint/restart watchdog.
 
 :class:`FaultPlan` is a seed-deterministic fault injector
 ``MaxflowService`` accepts (``MaxflowService(cfg, faults=plan)``).  It
@@ -19,13 +19,26 @@ Queue floods are a *workload* shape, not a fault: use
 ``repro_torch.serving.workload.synthesize(process="flood")``.  Every
 injection is counted (``stats()``) so chaos tests can assert the planned
 faults actually fired.
+
+**Training loop** — steps are deterministic, so the recovery contract
+is simple: on any step failure (device loss, preemption, injected fault)
+-> restore the latest committed checkpoint (params, optimizer,
+data-pipeline state) and replay.  ``run_loop`` is the single-process
+embodiment; on a real cluster the same loop runs under a process-restart
+supervisor and ``restore`` picks up the shared filesystem checkpoint.
+Straggler mitigation: per-step wall times feed an EWMA; steps slower than
+``straggler_factor`` x EWMA are counted and surfaced.  The loss is read
+to the host once a step (``LoopReport.last_loss``), as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
+
+from repro_torch.checkpoint import checkpoint as C
 
 
 class InjectedFault(RuntimeError):
@@ -142,3 +155,75 @@ class FaultPlan:
     def stats(self) -> dict:
         """JSON-clean injection counts (what actually fired)."""
         return dict(self.injected)
+
+
+#: training-loop section below ------------------------------------------------
+
+
+@dataclasses.dataclass
+class LoopReport:
+    steps_done: int = 0
+    restarts: int = 0
+    straggler_steps: int = 0
+    last_loss: float = float("nan")
+    step_times: list = dataclasses.field(default_factory=list)
+
+
+def run_loop(*, ckpt_dir: str, total_steps: int, make_state: Callable,
+             step_fn: Callable, pipeline, ckpt_every: int = 20,
+             max_restarts: int = 5, straggler_factor: float = 3.0,
+             fault_hook: Callable | None = None,
+             device=None) -> LoopReport:
+    """Run ``total_steps`` of training with checkpoint/restart.
+
+    make_state() -> (params, opt_state) freshly initialised.
+    step_fn(params, opt_state, batch) -> (params, opt_state, metrics).
+    fault_hook(step) may raise to inject failures (tests).
+    ``device`` is where a restored checkpoint's leaves go (``None``: the
+    card).  Each of ``step_times`` ends after the step's loss is read, so
+    on the card it holds the step's device work, not only its enqueue.
+    """
+    report = LoopReport()
+    restarts = 0
+    while True:
+        try:
+            tree, extra = C.restore(ckpt_dir, device=device)
+            if tree is None:
+                params, opt_state = make_state()
+                start = 0
+            else:
+                params, opt_state = tree["params"], tree["opt_state"]
+                pipeline.load_state_dict(extra["pipeline"])
+                start = int(extra["step"])
+            ewma = None
+            for step in range(start, total_steps):
+                t0 = time.time()
+                if fault_hook is not None:
+                    fault_hook(step)
+                batch = pipeline.next()
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     batch)
+                # the loss read waits for the step on the card, so ``dt``
+                # is the step's time there, not only its host enqueue
+                report.last_loss = float(metrics["loss"])
+                dt = time.time() - t0
+                report.step_times.append(dt)
+                ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
+                if dt > straggler_factor * ewma:
+                    report.straggler_steps += 1
+                report.steps_done = step + 1
+                if (step + 1) % ckpt_every == 0 or step + 1 == total_steps:
+                    C.save(ckpt_dir, step + 1,
+                           {"params": params, "opt_state": opt_state},
+                           extra={"step": step + 1,
+                                  "pipeline": pipeline.state_dict()})
+                    C.prune(ckpt_dir)
+            return report
+        except KeyboardInterrupt:
+            raise
+        except Exception:
+            restarts += 1
+            report.restarts = restarts
+            if restarts > max_restarts:
+                raise
+            # fall through: restore from latest checkpoint and replay

@@ -1083,3 +1083,84 @@ def test_family_smoke_serve_on_the_card_matches_cpu(cuda, arch):
     rec = serve.main(["--arch", arch, "--smoke", "--census", "--tokens", "8"])
     assert rec["device"] == "cuda" and rec["decode_step_host_reads"] == 0
     assert len(rec["decode_step_ms"]) == 7
+
+
+def test_smoke_train_step_on_the_card_reads_nothing_back(cuda):
+    """A qwen3-4b SMOKE train step (AdamW) on the card under sync-debug
+    "error" with no host read under the census, its metrics finite and its
+    loss falling over steps on one batch; and the same step in float32 on
+    the card against the CPU (loss within 1e-5, each gradient leaf within
+    1e-4 of its rms, TF32 off)."""
+    import dataclasses
+
+    from repro_torch.analysis import ir
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as S
+
+    cfg = registry.get_smoke_config("qwen3-4b")
+    params = T.init_params(cfg, 0, device=cuda)
+    opt = O.make_optimizer("adamw", lr=3e-3)
+    state = opt.init(params)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in TokenPipeline(
+        cfg.vocab, 4, 32, seed=0).next().items()}
+    step = S.make_train_step(cfg, opt)
+    # the first step on a device copies the rope frequencies there once
+    params, state, m = step(params, state, batch)
+    losses = [m["loss"]]
+    for _ in range(10):
+        with serve.no_host_sync(cuda):
+            params, state, m = step(params, state, batch)
+        losses.append(m["loss"])
+    c = ir.census(step, params, state, batch)
+    assert c.host_reads == 0 and c.op_count > 0
+    losses = [float(x) for x in losses]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0] - 0.5
+    assert int(state["count"]) == 12 and state["count"].is_cuda
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = T.init_params(cfg32, 1, device=cuda)
+    grad_fn = S.value_and_grad(S.make_loss_fn(cfg32))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        (lc, _), gc = grad_fn(p32, batch)
+        (lh, _), gh = grad_fn(T.tree_map(lambda a: a.cpu(), p32),
+                              {k: v.cpu() for k, v in batch.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
+    want = dict(T.tree_leaves(gh))
+    for path, g in T.tree_leaves(gc):
+        rms = want[path].pow(2).mean().sqrt()
+        assert (g.cpu() - want[path]).abs().max() <= 1e-4 * rms, path
+
+
+def test_bf16_checkpoint_from_the_card_is_bit_equal(cuda, tmp_path):
+    """Params and AdamW state written from the card (bf16, float32, the
+    int32 count) restore on the card and on the CPU with the same bits."""
+    from repro_torch.checkpoint import checkpoint as C
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+
+    cfg = registry.get_smoke_config("qwen3-4b")
+    params = T.init_params(cfg, 3, device=cuda)
+    state = O.make_optimizer("adamw").init(params)
+    state["mu"]["embed"].normal_()
+    tree = {"params": params, "opt_state": state}
+    C.save(tmp_path, 1, tree, extra={"step": 1})
+    want = {p: t.cpu() for p, t in T.tree_leaves(tree)}
+    for dev in (cuda, torch.device("cpu")):
+        got, extra = C.restore(tmp_path, device=dev)
+        assert extra == {"step": 1}
+        flat = dict(T.tree_leaves(got))
+        assert flat.keys() == want.keys()
+        for path, w in want.items():
+            g = flat[path]
+            assert g.device.type == dev.type and g.dtype == w.dtype, path
+            if w.dtype == torch.bfloat16:
+                g, w = g.view(torch.int16), w.view(torch.int16)
+            assert torch.equal(g.cpu(), w), path

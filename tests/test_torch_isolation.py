@@ -76,4 +76,5 @@ def test_importing_everything_loads_no_jax_and_no_repro():
     assert "repro_torch.core.pushrelabel" in modules  # the walk saw it
     assert {"repro_torch.launch.dryrun", "repro_torch.launch.mesh",
             "repro_torch.configs.registry"} <= set(modules)
-    assert len(EXAMPLES) == 4  # three max-flow examples, one LM example
+    # three max-flow examples, the LM serving and the LM training ones
+    assert len(EXAMPLES) == 5
