@@ -126,8 +126,8 @@ out-capacity of 2^32 - 2, a negative capacity) refused with
 ``OverflowError`` / ``ValueError`` through ``Solver.solve``, single and
 batched, in every mode, and through ``MaxflowService.submit``, and an
 instance exactly at the bound solved to Dinic's value on the card;
-``dryrun`` — ``python -m repro_torch.launch.dryrun --all --both-meshes``:
-its 12 graph cells (2 scales x 16x16 and 2x16x16 x 3 exchanges) one after
+``dryrun`` — ``python -m repro_torch.launch.dryrun --all --arch
+wbpr-maxflow --both-meshes``: its 12 graph cells (2 scales x 16x16 and 2x16x16 x 3 exchanges) one after
 another in a process of its own, each one rank of the mesh on the card
 under a fake process group, every record's meta that of its cell, its
 collective bytes those of its shapes' formulas, no kernel launched;
@@ -175,6 +175,19 @@ against the CPU (loss, every gradient leaf, the global norm, one AdamW
 update on the same gradients), and ``run_loop`` on it in bf16 with a
 fault injected after the first of two checkpoints (one restart, the
 clean run's loss exactly).  It launches none of the kernels.
+
+After it, ``lm_sharded``, the multi-device LM
+(``repro_torch.launch.sharded_checks``): one rank at full width under the
+fake process group, its real shards on the card — qwen2-72b
+``decode_32k`` at 16x16, all 80 layers (two steps across this rank's
+first cache slot: the cache's local shapes, where each write lands,
+finite logits), qwen3-4b ``train_4k`` at 16x16 (the 1/2-superblock
+extrapolation of flops and collective bytes equal to the whole
+36-layer run), GPipe at ``stages=1`` on a one-rank NCCL group against
+``value_and_grad`` and stage 1 of 4 at full width,
+``hierarchical_pod_psum`` on one NCCL rank bit-equal to the CPU, and the
+other families' 1-superblock train cells while its 120 s budget lasts.
+It launches none of the kernels.
 
 Outside the chaos run no serving phase may take a rung of the service's
 degradation ladder (retries, demotions, host fallbacks, dispatch errors):
@@ -2450,7 +2463,7 @@ def overflow_phase(torch, problems):
 
 def dryrun_phase(torch, smi):
     """Phase ``dryrun``: ``python -m repro_torch.launch.dryrun --all
-    --both-meshes --fresh`` on the card in a process of its own, its 12
+    --arch wbpr-maxflow --both-meshes --fresh`` on the card in a process of its own, its 12
     cells (2 graph scales x 2 production meshes x 3 exchanges) one after
     another, each one rank of the mesh under a fake process group.  One
     line a record, with the card's name and power limit; each record's
@@ -2465,7 +2478,8 @@ def dryrun_phase(torch, smi):
     out_dir = ROOT / "experiments" / "dryrun_torch"
     rc, stdout, stderr, wall = finish_proc(start_proc([
         sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-        "--both-meshes", "--fresh", "--out-dir", str(out_dir)]))
+        "--arch", "wbpr-maxflow", "--both-meshes", "--fresh", "--out-dir",
+        str(out_dir)]))
     errs = {p.name: p.read_text()[-2000:] for p in out_dir.glob("*.err")}
     require(rc == 0, f"the dry run failed (rc {rc}): {stdout[-2000:]}"
             f" {stderr[-2000:]} {errs}")
@@ -2611,6 +2625,27 @@ def train_phase(torch, quick: bool, smi: str) -> None:
     train_checks.run(lambda row: emit({**row, "nvidia_smi": smi}),
                      smoke=quick)
     no_launches(launch_counts(), "the training path")
+    torch.cuda.empty_cache()
+
+
+def sharded_phase(torch, quick: bool, smi: str) -> None:
+    """Phase ``lm_sharded``: ``repro_torch.launch.sharded_checks.run`` —
+    one rank at full width of the multi-device LM, under the fake group
+    with its real shards on the card, or on a one-rank NCCL group:
+    qwen2-72b ``decode_32k`` at 16x16 (80 layers; the cache's local
+    shapes, where the writes land, finite logits), qwen3-4b ``train_4k``
+    at 16x16 (the 1/2-superblock extrapolation equal to the whole run),
+    GPipe at ``stages=1`` against ``value_and_grad`` and stage 1 of 4,
+    ``hierarchical_pod_psum`` bit-equal to the CPU's, then the families'
+    1-superblock train cells while the budget lasts; ``--quick`` runs the
+    SMOKE configs.  It launches none of the kernels."""
+    from repro_torch.launch import sharded_checks
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    sharded_checks.run(lambda row: emit({**row, "nvidia_smi": smi}),
+                       smoke=quick)
+    no_launches(launch_counts(), "the multi-device LM path")
     torch.cuda.empty_cache()
 
 
@@ -3029,6 +3064,10 @@ def smoke(args, torch, t_start, made) -> int:
     t0 = time.perf_counter()
     train_phase(torch, args.quick, smi)
     emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    sharded_phase(torch, args.quick, smi)
+    emit({"phase": "lm_sharded_phase_done",
+          "seconds": time.perf_counter() - t0})
 
     # -- 4. the main path at full size --------------------------------------
     t0 = time.perf_counter()

@@ -29,7 +29,12 @@ What it records (:class:`OpCensus`):
 * ``host_calls`` — ops that synchronise with the host on the card
   (:data:`SYNC_OPS` and the conditional ones in :func:`_sync_reason`),
   each with its origin: the innermost frame outside PyTorch.
-* ``collectives`` — every ``c10d`` op, with its bytes and group size.
+* ``collectives`` — every ``c10d`` op, and every functional collective
+  that DTensor's redistributions issue (``_c10d_functional.*``), with
+  its bytes and group size.
+
+An op on DTensors is not recorded as such: the census lets DTensor run
+it first and records the rank's local ops and collectives it turns into.
 
 On the card the census also lets the engine's one read per chunk through
 ``torch.cuda.set_sync_debug_mode("error")``, so that every other
@@ -45,6 +50,7 @@ from collections import Counter
 from typing import Any, Callable, Iterator, Mapping, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import _pytree
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
@@ -97,6 +103,20 @@ COLLECTIVE_KINDS = {
     "c10d.alltoall_base_": "all-to-all",
     "c10d.send": "collective-permute",
 }
+# DTensor's redistributions issue the functional collectives
+for _ns in ("_c10d_functional", "_c10d_functional_autograd"):
+    COLLECTIVE_KINDS.update({
+        f"{_ns}.all_reduce": "all-reduce",
+        f"{_ns}.all_reduce_": "all-reduce",
+        f"{_ns}.all_reduce_coalesced": "all-reduce",
+        f"{_ns}.all_reduce_coalesced_": "all-reduce",
+        f"{_ns}.all_gather_into_tensor": "all-gather",
+        f"{_ns}.all_gather_into_tensor_out": "all-gather",
+        f"{_ns}.all_gather_into_tensor_coalesced": "all-gather",
+        f"{_ns}.reduce_scatter_tensor": "reduce-scatter",
+        f"{_ns}.reduce_scatter_tensor_coalesced": "reduce-scatter",
+        f"{_ns}.all_to_all_single": "all-to-all",
+    })
 
 _TORCH_DIR = os.path.dirname(torch.__file__) + os.sep
 _THIS = os.path.abspath(__file__)
@@ -411,6 +431,12 @@ def _sync_reason(op: str, func, args, kwargs) -> str | None:
 def _group_size(args) -> int | None:
     from torch._C._distributed_c10d import ProcessGroup
 
+    if args and isinstance(args[-1], str):  # a functional op's group name
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        try:
+            return int(_resolve_process_group(args[-1]).size())
+        except (RuntimeError, ValueError, KeyError):
+            return None
     for a in args:
         if isinstance(a, torch.ScriptObject) and \
                 a._type().qualified_name().endswith("c10d.ProcessGroup"):
@@ -497,6 +523,10 @@ class _Recorder(TorchDispatchMode):
     # -- the dispatch ------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            # let DTensor run first: the census sees the rank's local ops
+            # and the collectives its redistributions issue
+            return NotImplemented
         kwargs = kwargs or {}
         if self.depth:
             self.kernel_ops += 1
@@ -516,6 +546,10 @@ class _Recorder(TorchDispatchMode):
         if func.namespace == "c10d":
             self.collectives.append(Collective(
                 op, COLLECTIVE_KINDS.get(op), _collective_bytes(args),
+                _group_size(args), site))
+        elif op in COLLECTIVE_KINDS:  # functional: its result is the buffer
+            self.collectives.append(Collective(
+                op, COLLECTIVE_KINDS[op], _collective_bytes((out,)),
                 _group_size(args), site))
         else:
             self._track(op, func, args, kwargs, out, site)

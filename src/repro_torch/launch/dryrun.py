@@ -1,23 +1,23 @@
-"""Multi-pod dry run, the max-flow half (port of the graph cells of the
-JAX package's ``repro.launch.dryrun``).
+"""Multi-pod dry run (port of the JAX package's ``repro.launch.dryrun``).
 
     python -m repro_torch.launch.dryrun --arch wbpr-maxflow --shape graph_128m
     python -m repro_torch.launch.dryrun --arch wbpr-maxflow --shape graph_16m \\
         --multi-pod --graph-mode sharded --device cpu
-    python -m repro_torch.launch.dryrun --all --both-meshes   # 12 records
+    python -m repro_torch.launch.dryrun --arch qwen2-72b --shape decode_32k
+    python -m repro_torch.launch.dryrun --all --both-meshes   # every cell
 
-One cell is one graph scale (``launch/shapes.py``'s ``GRAPH_SHAPES``) on
-one production mesh (16x16 or 2x16x16, ``launch/mesh.py``) in one
-exchange of the distributed superstep (``replicated``, ``sharded``,
-``sparse``; ``core/distributed.py``).  The reference lowers and compiles
-the whole mesh's superstep for 512 fake XLA host devices.  Eager PyTorch
-compiles nothing, so the port RUNS one rank of it instead: under
-``mesh.fake_world`` this process is rank :data:`RANK` (which holds
-neither the source nor the sink) of the mesh's 256 or 512 ranks, with
-that rank's real slab and state on the card (or the CPU with ``--device
-cpu``), and the fake group's collectives returning at once.
+The reference lowers and compiles the whole mesh's program for 256 or
+512 fake XLA host devices.  Eager PyTorch compiles nothing, so the port
+RUNS one rank of it instead: under ``mesh.fake_world`` this process is
+rank :data:`RANK` of the mesh's 256 or 512 ranks, with that rank's real
+shards on the card (or the CPU with ``--device cpu``), and the fake
+group's collectives returning at once.
 
-The rank's slab is one rank's part of a synthetic regular graph, built
+**Graph cells.** One cell is one graph scale (``launch/shapes.py``'s
+``GRAPH_SHAPES``) on one production mesh (16x16 or 2x16x16,
+``launch/mesh.py``) in one exchange of the distributed superstep
+(``replicated``, ``sharded``, ``sparse``; ``core/distributed.py``).  The
+rank's slab is one rank's part of a synthetic regular graph, built
 alone, without the whole graph: a circulant graph in which every vertex
 has degree ``d = amax / vs`` (8 in every cell), arc ``(v, k)`` goes to
 ``(v + o_k) mod n`` over paired offsets ``o_{2j+1} = -o_{2j}`` with
@@ -28,33 +28,50 @@ apart at most (balanced base-``b`` digits; exactly so where ``b^(d/2) =
 n``, as at ``n = 2^24``, 128), and the largest offsets cross ranks.
 Residual capacities (1 to :data:`MAX_CAP`), heights (below
 :data:`MAX_H`) and a mid-solve excess on a share :data:`EXCESS_SHARE` of
-the vertices come from ``--seed``, so the step has active lanes.
+the vertices come from ``--seed``, so the step has active lanes.  Its
+record carries ``per_iter.step`` / ``per_iter.gr_sweep`` with their
+``collectives`` = ``{total_bytes, by_op, counts}``, and
+``extrapolated.collective_bytes`` = 64 steps + 24 sweeps; under
+``full.memory`` the rank's state bytes and, on the card, the peak
+allocated across one superstep; a step's and a sweep's aten ops and
+kernel launches (the op census, ``analysis/ir.py``); their device ms on
+the card (CUDA events, median of :data:`REPS`) and host-clock ms on
+both; and the wall of one superstep.
+
+**Language-model cells.** One cell is one arch of ``registry.ARCH_IDS``
+at one of its ``LM_SHAPES`` on one production mesh.  ``long_500k`` on a
+full-attention arch writes the reference's skip record.  The rank's
+parameters (``transformer.init_local_params``: only its own shards are
+drawn), optimizer state, batch, cache and tokens are DTensors on a
+``DeviceMesh`` of the mesh (``specs.input_specs`` / ``materialize``),
+and the cell's step runs once under the op census and
+``FlopCounterMode``, then :data:`LM_REPS` times timed: a train step with
+``cfg.optimizer``, a prefill, or a decode step.  Every cell runs at 1
+and 2 superblocks (the reference's unrolled variants; eager PyTorch
+counts every op, so no chunk variants are needed), and flops, collective
+bytes by kind, aten ops, device ms and the peak allocated are
+extrapolated as the reference's are: ``C = C1 + (n_blocks - 1)(C2 -
+C1)``.  ``--full-depth`` runs the whole depth too, where the rank fits
+the card.  ``full.memory`` holds the rank's argument bytes at full depth
+from the shape trees (params, opt state, cache, batch).  ``--opt`` takes
+the reference's perf-knob overrides.
 
 Each cell writes one JSON record to
-``experiments/dryrun_torch/<arch>__<shape>__<mesh>[__<mode>].json`` with
-the reference's fields where they mean the same thing (``arch``,
-``shape``, ``mesh``, ``devices``, ``kind``, ``graph_mode``, ``skipped``,
-``analytic``, ``per_iter.step`` / ``per_iter.gr_sweep`` with their
-``collectives`` = ``{total_bytes, by_op, counts}``, and
-``extrapolated.collective_bytes`` = 64 steps + 24 sweeps), and what a run
-adds: under ``full.memory`` the rank's state bytes and, on the card, the
-peak allocated across one superstep; a step's and a sweep's aten ops and
-kernel launches (the op census, ``analysis/ir.py``); their device ms on
-the card (CUDA events, median of :data:`REPS`) and host-clock ms on both;
-and the wall of one superstep.
+``experiments/dryrun_torch/<arch>__<shape>__<mesh>[__opt-<knobs>][__<mode>].json``
+with the reference's fields where they mean the same thing (``arch``,
+``shape``, ``mesh``, ``devices``, ``kind``, ``skipped``, ``opt``,
+``analytic``, ``extrapolated``), and ``device``, ``device_name`` and
+``torch``.
 
 What the fake group hides: no byte crosses a wire, so no wire time is
 measured, only the bytes each collective would move
-(``analysis/collectives.py``); and the relabel's all-reduce of MIN
-combines nothing, so its sweep count is this rank's local fixpoint, not
-the mesh's.  XLA's ``flops``, ``bytes_accessed`` and lower / compile
-times have no eager counterpart and are left out, not estimated.
-
-The language-model cells wait for the rest of the LM port (ROADMAP.md,
-Queue 1 items 4-6: training, and the sharding rules with the LM cells;
-every mixer runs since item 3): an arch of a language-model family raises
-``NotImplementedError``, and ``--all`` covers the ``graph`` family
-(``wbpr-maxflow``) only.
+(``analysis/collectives.py``); the relabel's all-reduce of MIN combines
+nothing, so its sweep count is this rank's local fixpoint; and an LM
+rank's numbers are its own shards' (an all-gather tiles the local
+chunk).  The collectives are the ones DTensor's sharding propagation
+chooses, not GSPMD's.  XLA's ``bytes_accessed``, ``transcendentals`` and
+lower / compile times have no eager counterpart and are left out, not
+estimated.
 """
 from __future__ import annotations
 
@@ -81,10 +98,10 @@ EXCESS_SHARE = 0.25
 #: timed calls a median
 REPS = 10
 GRAPH_MODES = ("replicated", "sharded", "sparse")
-LM_GUIDANCE = ("the language-model dry-run cells are not ported to "
-               "repro_torch yet: they wait for training and the sharding "
-               "rules (ROADMAP.md, Queue 1 items 4-6); the port's dry run "
-               "covers --arch wbpr-maxflow")
+#: timed calls of an LM cell's step a variant (after the census's call)
+LM_REPS = 2
+SKIP_REASON = ("full-attention arch: long-context decode is quadratic; "
+               "skipped per DESIGN.md §5")
 
 
 def _mesh_tag(multi_pod: bool) -> str:
@@ -92,9 +109,11 @@ def _mesh_tag(multi_pod: bool) -> str:
 
 
 def record_name(arch: str, shape: str, mesh_tag: str,
-                graph_mode: str = "replicated") -> str:
+                graph_mode: str = "replicated", opt_slug: str = "") -> str:
     """A record's file name (the reference's tag, with the mode)."""
     tag = f"{arch}__{shape}__{mesh_tag}"
+    if opt_slug:
+        tag += f"__opt-{opt_slug}"
     if graph_mode != "replicated":
         tag += f"__{graph_mode}"
     return f"{tag}.json"
@@ -349,25 +368,252 @@ def _lower_graph(cell, mesh, mode: str, device=None, seed: int = 0,
     return meta, shapes, per_iter, full, graph
 
 
+# ---------------------------------------------------------------------------
+# the language-model cell
+# ---------------------------------------------------------------------------
+
+def _analytic_lm(cfg, cell):
+    n_active = cfg.active_param_count()
+    n_total = cfg.param_count()
+    if cell.kind == "train":
+        tokens = cell.batch * cell.seq
+        model_flops = 6 * n_active * tokens
+    elif cell.kind == "prefill":
+        tokens = cell.batch * cell.seq
+        model_flops = 2 * n_active * tokens
+    else:
+        tokens = cell.batch
+        model_flops = 2 * n_active * tokens
+    return {"params": n_total, "active_params": n_active,
+            "tokens": tokens, "model_flops": model_flops}
+
+
+def _apply_overrides(cfg, opt: str):
+    if not opt:
+        return cfg, ""
+    kw = {}
+    for item in opt.split(","):
+        k, _, v = item.partition("=")
+        kw[k.strip()] = bool(int(v)) if v in ("0", "1") else v
+    slug = "-".join(k for k, v in kw.items() if v)
+    return dataclasses.replace(cfg, **kw), slug
+
+
+def depth_variant(cfg, n_super: int):
+    """``cfg`` cut to ``n_super`` superblocks (the reference's
+    ``_cost_variant_cfg`` depth; whisper's encoder to as many layers)."""
+    kw = dict(n_layers=len(cfg.block_pattern) * n_super)
+    if cfg.is_encoder_decoder:
+        kw["n_enc_layers"] = n_super
+    return dataclasses.replace(cfg, **kw)
+
+
+def arg_bytes(cfg, cell, mesh) -> dict:
+    """One rank's argument bytes of the cell's step from the shape trees
+    (``specs.input_specs``): params, opt state, cache, batch."""
+    from repro_torch.launch import specs as S
+    from repro_torch.models import transformer as T
+
+    args, kind = S.input_specs(cfg, cell, mesh)
+    out = {"params": T.tree_bytes(args[0]), "opt_state": 0, "cache": 0,
+           "batch": 0}
+    if kind == "train":
+        out["opt_state"] = T.tree_bytes(args[1])
+        out["batch"] = T.tree_bytes(args[2])
+    elif kind == "prefill":
+        out["batch"] = sum(T.tree_bytes(a) for a in args[1:])
+    else:
+        out["cache"] = T.tree_bytes(args[1])
+        out["batch"] = T.tree_bytes(args[2])
+    out["total"] = sum(out.values())
+    return out
+
+
+def lm_step(cfg, cell, mesh, dmesh, device, seed: int = 0):
+    """Rank :data:`RANK`'s step of ``cell`` on ``dmesh`` (a ``DeviceMesh``
+    of ``mesh`` over the open group) and its arguments: ``(fn, args,
+    kind)``, ``fn(*args)`` one train step (``cfg.optimizer``, the grads
+    pinned with ``cfg.pin_grads``), prefill or decode step."""
+    from repro_torch.launch import specs as S
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import (make_decode_step,
+                                                 make_prefill_step,
+                                                 make_train_step)
+
+    specs, kind = S.input_specs(cfg, cell, mesh)
+    params = T.init_local_params(cfg, dmesh, seed, device)
+    rest = [S.materialize(a, dmesh, device, seed, vocab=cfg.vocab)
+            for a in specs[1:]]
+    if kind == "train":
+        opt = O.make_optimizer(cfg.optimizer)
+        gs = T.param_shardings(cfg, dmesh) if cfg.pin_grads else None
+        return (make_train_step(cfg, opt, grad_shardings=gs),
+                (params, opt.init(params), rest[1]), kind)
+    if kind == "prefill":
+        return make_prefill_step(cfg), (params, *rest), kind
+    return make_decode_step(cfg), (params, *rest), kind
+
+
+def flop_mode():
+    """A dispatch mode that counts the flops of the ops it sees
+    (``.total``) by ``FlopCounterMode``'s formulas (matmuls, attention's
+    included as its matmuls).  ``FlopCounterMode`` itself would count an
+    op on DTensors at its global shapes; this mode lets DTensor run first,
+    as the census does, so it counts this rank's local ops."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    registry = FlopCounterMode(display=False).flop_registry
+
+    class _LocalFlops(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            f = registry.get(func._overloadpacket)
+            if f is not None:
+                self.total += int(f(*args, **kwargs, out_val=out))
+            return out
+
+    return _LocalFlops()
+
+
+def _lm_variant(cfg, cell, mesh, dev, seed: int, reps: int) -> dict:
+    """One depth variant of an LM cell, under a fake group of its own:
+    after a first call, one call under the census (collective bytes by
+    kind, aten ops, kernel launches) and :func:`flop_mode`, then ``reps``
+    timed calls (device ms by CUDA
+    events on the card, host ms on both; the peak allocated across
+    them)."""
+    import torch
+
+    from repro_torch.analysis import ir
+    from repro_torch.analysis.collectives import collective_bytes
+    from repro_torch.launch.mesh import device_mesh, fake_world
+
+    cuda = dev.type == "cuda"
+    with fake_world(mesh.size, RANK):
+        dmesh = device_mesh(mesh, dev.type)
+        t0 = time.perf_counter()
+        fn, args, _ = lm_step(cfg, cell, mesh, dmesh, dev, seed)
+        setup_s = time.perf_counter() - t0
+        launches0 = _kernel_launches()
+        # the first call fills DTensor's sharding-propagation caches (the
+        # propagation runs ops of its own): the counts are of a later one
+        t0 = time.perf_counter()
+        fn(*args)
+        first_s = time.perf_counter() - t0
+        fm = flop_mode()
+        with fm:
+            _, c = ir.record(fn, *args)
+        flops = fm.total
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        walls, events = [], []
+        for _ in range(reps):
+            if cuda:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+            t0 = time.perf_counter()
+            fn(*args)
+            if cuda:
+                b.record()
+                torch.cuda.synchronize()
+                events.append(a.elapsed_time(b))
+            walls.append(1e3 * (time.perf_counter() - t0))
+        out = {"n_layers": cfg.n_layers, "flops": flops,
+               "collectives": collective_bytes(c), "aten_ops": c.op_count,
+               "kernel_launches": _kernel_launches() - launches0,
+               "reps": reps, "wall_ms": statistics.median(walls),
+               "device_ms": statistics.median(events) if cuda else None,
+               "peak_allocated_bytes": (torch.cuda.max_memory_allocated()
+                                        if cuda else None),
+               "setup_s": setup_s, "first_call_s": first_s}
+        del fn, args
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def extrapolate(c1: dict, c2: dict, n_blocks: int) -> dict:
+    """``C = C1 + (n_blocks - 1)(C2 - C1)`` of every cost the variants
+    share: flops, collective bytes (in all and by kind), aten ops, device
+    ms and the peak allocated (``None`` where a variant has none)."""
+    def ex(a, b):
+        if a is None or b is None:
+            return None
+        return a + (n_blocks - 1) * (b - a)
+
+    kinds = set(c1["collectives"]["by_op"]) | set(c2["collectives"]["by_op"])
+    return {
+        "flops": ex(c1["flops"], c2["flops"]),
+        "collective_bytes": ex(c1["collectives"]["total_bytes"],
+                               c2["collectives"]["total_bytes"]),
+        "collective_bytes_by_op": {
+            k: ex(c1["collectives"]["by_op"].get(k, 0.0),
+                  c2["collectives"]["by_op"].get(k, 0.0)) for k in kinds},
+        "collectives_by_op_1sb": c1["collectives"]["by_op"],
+        "aten_ops": ex(c1["aten_ops"], c2["aten_ops"]),
+        "device_ms": ex(c1["device_ms"], c2["device_ms"]),
+        "peak_allocated_bytes": ex(c1["peak_allocated_bytes"],
+                                   c2["peak_allocated_bytes"]),
+    }
+
+
+def _lower_lm(cfg, cell, mesh, dev, seed: int, reps: int,
+              full_depth: bool) -> dict:
+    """The LM cell's costs: the 1- and 2-superblock variants, their
+    extrapolation to ``cfg.n_blocks``, and with ``full_depth`` the whole
+    depth's run."""
+    c1 = _lm_variant(depth_variant(cfg, 1), cell, mesh, dev, seed, reps)
+    c2 = _lm_variant(depth_variant(cfg, 2), cell, mesh, dev, seed, reps)
+    out = {"variant_costs": {"c1": c1, "c2": c2},
+           "extrapolated": extrapolate(c1, c2, cfg.n_blocks)}
+    if full_depth:
+        out["full_run"] = _lm_variant(cfg, cell, mesh, dev, seed, reps)
+    return out
+
+
+def skip_record(arch: str, shape: str, mesh_tag: str) -> dict:
+    """The reference's record of a cell ``cells_for`` leaves out."""
+    return {"arch": arch, "shape": shape, "mesh": mesh_tag,
+            "skipped": True, "reason": SKIP_REASON}
+
+
 def run_cell(arch: str, shape, multi_pod: bool = False,
-             graph_mode: str = "replicated", *, mesh=None, device=None,
-             seed: int = 0, reps: int = REPS) -> dict:
-    """The record of one cell.  ``shape`` is a ``GRAPH_SHAPES`` name or a
+             graph_mode: str = "replicated", *, opt: str = "", mesh=None,
+             device=None, seed: int = 0, reps: int | None = None,
+             full_depth: bool = False, cfg=None) -> dict:
+    """The record of one cell.  ``shape`` is a cell's name or a
     ``ShapeCell``; ``mesh`` (a ``launch.mesh.Mesh``) overrides the
-    production mesh ``multi_pod`` picks, so that tests run small cells."""
+    production mesh ``multi_pod`` picks, and ``cfg`` the arch's config,
+    so that tests run small cells.  ``opt`` (an LM cell's perf knobs,
+    ``shard_activations=1,...``) and ``full_depth`` as on the command
+    line."""
     from repro_torch.configs import registry
     from repro_torch.launch import shapes as SH
     from repro_torch.launch.mesh import production_mesh
 
-    cfg = registry.get_config(arch)
-    if cfg.family != "graph":
-        raise NotImplementedError(f"{arch!r}: {LM_GUIDANCE}")
+    cfg = cfg or registry.get_config(arch)
+    lm = cfg.family != "graph"
+    opt_slug = ""
+    if lm:
+        cfg, opt_slug = _apply_overrides(cfg, opt)
+    mesh = mesh or production_mesh(multi_pod)
     cells = {c.name: c for c in SH.cells_for(cfg)}
     cell = shape if isinstance(shape, SH.ShapeCell) else cells.get(shape)
     if cell is None:
+        if lm and shape in SH.LM_SHAPES:
+            return skip_record(arch, shape, mesh.tag)
         raise KeyError(f"unknown shape {shape!r} for {arch!r}; expected one "
                        f"of {sorted(cells)}")
-    mesh = mesh or production_mesh(multi_pod)
     import torch
 
     from repro_torch.kernels.runtime import resolve_device
@@ -375,14 +621,27 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
     dev = resolve_device(device)
     rec = {"arch": arch, "shape": cell.name, "mesh": mesh.tag,
            "devices": mesh.size, "kind": cell.kind, "skipped": False,
-           "opt": None, "graph_mode": graph_mode, "rank": RANK,
-           "device": dev.type,
+           "opt": opt or None, "rank": RANK, "device": dev.type,
            "device_name": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
            "torch": torch.__version__}
     t0 = time.time()
+    if lm:
+        if opt_slug:
+            rec["opt_slug"] = opt_slug
+        rec.update(_lower_lm(cfg, cell, mesh, dev, seed,
+                             LM_REPS if reps is None else reps, full_depth))
+        rec["run_s"] = time.time() - t0
+        rec["full"] = {"memory": {
+            "arg_bytes": arg_bytes(cfg, cell, mesh),
+            "peak_allocated_bytes":
+                rec["extrapolated"]["peak_allocated_bytes"]}}
+        rec["analytic"] = _analytic_lm(cfg, cell)
+        return rec
+    rec["graph_mode"] = graph_mode
     meta, shapes, per_iter, full, graph = _lower_graph(
-        cell, mesh, graph_mode, dev, seed, CYCLES, reps)
+        cell, mesh, graph_mode, dev, seed, CYCLES,
+        REPS if reps is None else reps)
     rec["run_s"] = time.time() - t0
     rec["meta"] = dataclasses.asdict(meta)
     rec["shard_shapes"] = {k: list(v) for k, v in shapes.items()}
@@ -400,37 +659,49 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
 
 
 def _jobs(args) -> list[tuple[str, str, bool, str]]:
-    """``(arch, shape, multi_pod, mode)`` of every cell ``--all`` runs."""
+    """``(arch, shape, multi_pod, mode)`` of every cell ``--all`` runs:
+    every arch of ``registry.ARCH_IDS`` (``--arch``: that one); an LM arch at every
+    ``LM_SHAPES`` entry (the ones it skips give their skip record), the
+    graph arch in each exchange."""
     from repro_torch.configs import registry
     from repro_torch.launch import shapes as SH
 
     meshes = (False, True) if args.both_meshes else (args.multi_pod,)
     modes = (args.graph_mode,) if args.graph_mode else GRAPH_MODES
     jobs = []
-    graph_archs = [a for a in registry.ARCH_IDS
-                   if registry.get_config(a).family == "graph"]
-    for arch in graph_archs:
-        for cell in SH.cells_for(registry.get_config(arch)):
-            for mp in meshes:
-                jobs += [(arch, cell.name, mp, m) for m in modes]
+    only = getattr(args, "arch", None)
+    for arch in registry.ARCH_IDS:
+        if only and arch != only:
+            continue
+        cfg = registry.get_config(arch)
+        if cfg.family == "graph":
+            for cell in SH.cells_for(cfg):
+                for mp in meshes:
+                    jobs += [(arch, cell.name, mp, m) for m in modes]
+        else:
+            jobs += [(arch, shape, mp, "replicated")
+                     for shape in SH.LM_SHAPES for mp in meshes]
     return jobs
 
 
 def run_all(args, out_dir: pathlib.Path) -> int:
-    """Every ``wbpr-maxflow`` cell, one after another in this process, each
-    under a fake group of its own (``_lower_graph`` opens it and destroys
-    it on exit), with the card's cached memory freed between cells; a
-    record that exists is kept unless ``--fresh``.  The reference runs
-    each cell in a subprocess because XLA's host-device count is fixed at
-    start-up; nothing here is.  Returns the number of cells that
-    failed."""
+    """Every cell, one after another in this process, each under a fake
+    group of its own (``_lower_graph`` / ``_lm_variant`` open it and
+    destroy it on exit), with the card's cached memory freed between
+    cells; a record that exists is kept unless ``--fresh``.  The
+    reference runs each cell in a subprocess because XLA's host-device
+    count is fixed at start-up; nothing here is.  Returns the number of
+    cells that failed."""
     import traceback
 
     import torch
 
+    opt = getattr(args, "opt", "")
+    full_depth = getattr(args, "full_depth", False)
     todo = []
     for arch, shape, mp, mode in _jobs(args):
-        fout = out_dir / record_name(arch, shape, _mesh_tag(mp), mode)
+        slug = _slug(arch, opt)
+        fout = out_dir / record_name(arch, shape, _mesh_tag(mp), mode, slug)
         if fout.exists() and not args.fresh:
             print(f"[skip-cached] {fout.stem}", flush=True)
             continue
@@ -440,8 +711,9 @@ def run_all(args, out_dir: pathlib.Path) -> int:
     for fout, arch, shape, mp, mode in todo:
         t0, ok = time.time(), True
         try:
-            rec = run_cell(arch, shape, mp, mode, device=args.device,
-                           seed=args.seed)
+            rec = run_cell(arch, shape, mp, mode, opt=opt,
+                           device=args.device, seed=args.seed,
+                           full_depth=full_depth)
             fout.write_text(json.dumps(rec, indent=2))
         except Exception:  # noqa: BLE001 - recorded, counted, returned
             ok = False
@@ -457,6 +729,14 @@ def run_all(args, out_dir: pathlib.Path) -> int:
     return len(failures)
 
 
+def _slug(arch: str, opt: str) -> str:
+    """The override slug of ``--opt`` for an LM arch ('' for the graph)."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config(arch)
+    return "" if cfg.family == "graph" else _apply_overrides(cfg, opt)[1]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=None)
@@ -466,8 +746,12 @@ def main(argv=None) -> int:
     ap.add_argument("--graph-mode", default=None, choices=GRAPH_MODES,
                     help="one cell: default replicated; --all: default "
                          "every mode")
+    ap.add_argument("--opt", default="",
+                    help="LM perf-knob overrides, e.g. shard_activations=1")
+    ap.add_argument("--full-depth", action="store_true",
+                    help="LM cells: also run the whole depth")
     ap.add_argument("--all", action="store_true",
-                    help="run every wbpr-maxflow cell, one after another")
+                    help="run every cell, one after another")
     ap.add_argument("--fresh", action="store_true",
                     help="with --all, rerun cells whose record exists")
     ap.add_argument("--device", default=None,
@@ -485,16 +769,24 @@ def main(argv=None) -> int:
         ap.error("--arch and --shape are required without --all")
     mode = args.graph_mode or "replicated"
     rec = run_cell(args.arch, args.shape, args.multi_pod, mode,
-                   device=args.device, seed=args.seed)
-    fout = out_dir / record_name(args.arch, args.shape, rec["mesh"], mode)
+                   opt=args.opt, device=args.device, seed=args.seed,
+                   full_depth=args.full_depth)
+    fout = out_dir / record_name(args.arch, args.shape, rec["mesh"], mode,
+                                 rec.get("opt_slug", ""))
     fout.write_text(json.dumps(rec, indent=2))
     print(json.dumps({k: rec.get(k) for k in
                       ("arch", "shape", "mesh", "graph_mode", "skipped",
                        "run_s")}))
-    print("memory:", rec["full"]["memory"])
-    print("per step:", rec["per_iter"]["step"])
-    print("per sweep:", rec["per_iter"]["gr_sweep"])
-    print("extrapolated:", rec["extrapolated"])
+    if rec["skipped"]:
+        print("skipped:", rec["reason"])
+    elif "per_iter" in rec:
+        print("memory:", rec["full"]["memory"])
+        print("per step:", rec["per_iter"]["step"])
+        print("per sweep:", rec["per_iter"]["gr_sweep"])
+        print("extrapolated:", rec["extrapolated"])
+    else:
+        print("memory:", rec["full"]["memory"])
+        print("extrapolated:", rec["extrapolated"])
     return 0
 
 

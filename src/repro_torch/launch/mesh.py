@@ -17,6 +17,11 @@ process-global but open only inside the ``with`` block, so the dry run
 runs its cells one after another in one process, each under a group of
 its own.
 
+:func:`device_mesh` opens a ``DeviceMesh`` of a :class:`Mesh` over the
+group that is open (the fake group in the dry run, gloo ranks in the
+tests, NCCL ranks on the card): the DTensor mesh the multi-device LM
+shards over (``sharding/rules.py``).
+
 Nothing here touches the process group at import.
 """
 from __future__ import annotations
@@ -68,6 +73,31 @@ def host_world() -> Mesh:
     n = dist.get_world_size()
     model = next(m for m in (4, 2, 1) if n % m == 0)
     return Mesh((n // model, model), ("data", "model"))
+
+
+def device_mesh(mesh: Mesh, device_type: str | None = None):
+    """A ``DeviceMesh`` of ``mesh.shape`` named ``mesh.axis_names`` over
+    the default group, which must hold exactly ``mesh.size`` ranks, on
+    ``device_type`` (``None``: the card).
+
+    On the card every rank of this process uses the current device: rank
+    1 of a fake 256-rank world lands on ``cuda:0``, where
+    ``init_device_mesh`` would pick ``rank % device_count``."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels.runtime import resolve_device
+
+    device_type = resolve_device(device_type).type
+    if not dist.is_initialized():
+        raise RuntimeError("no torch.distributed process group is open")
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"the mesh {mesh.tag} needs {mesh.size} ranks, "
+                         f"the group has {dist.get_world_size()}")
+    if device_type == "cuda":
+        torch.cuda.set_device(torch.cuda.current_device())
+    ranks = torch.arange(mesh.size).reshape(mesh.shape)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=mesh.axis_names)
 
 
 @contextlib.contextmanager

@@ -17,6 +17,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding import rules as SR
 
 NEG_INF = -1e30
 
@@ -42,17 +45,19 @@ DRAW_WHOLE = 2**28
 
 
 def init_param(generator: torch.Generator, spec: PSpec, dtype: torch.dtype,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, std: float | None = None
+               ) -> torch.Tensor:
     """One leaf: zeros, ones, or a float32 normal draw times
-    :func:`init_std` cast to ``dtype`` (the reference's distribution;
-    ``torch.Generator`` cannot give its numbers).  A leaf of more than
-    :data:`DRAW_WHOLE` elements is drawn in slices of its first dim,
-    from the same generator."""
+    :func:`init_std` (or ``std``: a shard's draw takes its whole leaf's)
+    cast to ``dtype`` (the reference's distribution; ``torch.Generator``
+    cannot give its numbers).  A leaf of more than :data:`DRAW_WHOLE`
+    elements is drawn in slices of its first dim, from the same
+    generator."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
-    std = float(init_std(spec))
+    std = float(init_std(spec)) if std is None else std
     # drawn in slices of the first dim of at most DRAW_WHOLE elements (one
     # slice if a row is larger; the whole leaf if it is no larger), so that
     # a large leaf's float32 draw never stands beside it whole (mixtral's
@@ -125,15 +130,40 @@ def attn_specs(cfg, cross: bool = False) -> dict:
 def qkv_project(cfg, p, x, kv_x=None):
     """x: (B,S,D) -> q (B,S,H,Dh), k/v (B,Skv,KV,Dh). kv_x for cross-attn."""
     kv_x = x if kv_x is None else kv_x
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"])
+    q = proj_heads(x, p["wq"])
+    k = proj_heads(kv_x, p["wk"])
+    v = proj_heads(kv_x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if "qnorm" in p:
         q = rms_norm(q, p["qnorm"])
         k = rms_norm(k, p["knorm"])
     return q, k, v
+
+
+def proj_heads(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)`` as a matmul with ``w`` seen as
+    (D, H*K) and a reshape: DTensor (torch 2.11) cannot flatten the
+    sharded dims an einsum would, a sharded head dim being the outer one
+    of (H, K) here.  A weight's FSDP shards are gathered first."""
+    d, h, k = w.shape
+    w = SR.fsdp_gather(w)
+    return (x @ w.reshape(d, h * k)).reshape(x.shape[:-1] + (h, k))
+
+
+def proj_out(o, w):
+    """``einsum("bshd,hde->bse", o, w)``.  On DTensors a matmul of ``o``
+    seen as (B, S, H*D) with ``w`` as (H*D, E), the partial sums over
+    the head shards all-reduced.  Plain tensors keep the einsum, which
+    sums in (D, H) order: the (H, D) order, the only one a sharded head
+    dim flattens in, moves whisper's float32 decode chain past the
+    reference's own float32 error."""
+    if not isinstance(o, DTensor):
+        return torch.einsum("bshd,hde->bse", o, w)
+    h, d, e = w.shape
+    w = SR.fsdp_gather(w)
+    return SR.reduce_partial(o.reshape(o.shape[:-2] + (h * d,))
+                             @ w.reshape(h * d, e))
 
 
 def _mask(qpos, kpos, causal: bool, window):
@@ -286,12 +316,17 @@ def flash_attention(q, k, v, *, causal=True, window=None, chunk=1024):
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
 
 
-def attn_decode(q, k_cache, v_cache, valid_mask):
+def attn_decode(q, k_cache, v_cache, valid_mask, seq_groups=()):
     """Single-token attention over a cache.
 
     q: (B,1,H,D); k/v_cache: (B,S,KV,D); valid_mask: (B,S) or (S,).
     Softmax is written max/sum-decomposed, as in the reference (whose
-    cache may be sharded along S)."""
+    cache may be sharded along S).  With ``seq_groups`` the cache is one
+    rank's shard of the sequence: the max, the sum and the output are
+    all-reduced over each of those process groups (the output in
+    float32)."""
+    import torch.distributed as dist
+
     b, _, h, d = q.shape
     kvh = k_cache.shape[2]
     qg = q.reshape(b, kvh, h // kvh, d)
@@ -301,9 +336,18 @@ def attn_decode(q, k_cache, v_cache, valid_mask):
         valid_mask = valid_mask[None]
     s = torch.where(valid_mask[:, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True).detach()
+    for g in seq_groups:
+        dist.all_reduce(m, dist.ReduceOp.MAX, group=g)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    for g in seq_groups:
+        dist.all_reduce(l, group=g)
     o = torch.einsum("bkgs,bskd->bkgd", (p / l).to(v_cache.dtype), v_cache)
+    if seq_groups:
+        o = o.to(torch.float32)
+        for g in seq_groups:
+            dist.all_reduce(o, group=g)
+        o = o.to(v_cache.dtype)
     return o.reshape(b, 1, h, d)
 
 
@@ -312,17 +356,39 @@ def attn_decode(q, k_cache, v_cache, valid_mask):
 # ---------------------------------------------------------------------------
 
 def tp_matmul_bf16reduce(x, w, *, batch_axes=None, group=None):
-    """Tensor-parallel contraction with a bf16 cross-device combine.
+    """Tensor-parallel contraction with an explicit **bf16** cross-device
+    combine: x (..., F/tp) x w (F/tp, D) -> all-reduce_bf16(..., D).
 
-    Only the reference's single-device branch is ported: with no
-    model-parallel group this is ``x @ w``.  The combine over a group
-    (a bf16 all-reduce of the local partials) comes with the multi-device
-    LM (ROADMAP.md, Queue 1 item 6); a group is refused, not ignored."""
+    The propagation (as GSPMD) would all-reduce float32 partial sums, at
+    twice the wire bytes; here each rank's partial ``x @ w`` over its own
+    ``F/tp`` slice is rounded to bf16 and summed over the ``model`` group
+    by an all-reduce in bf16 (Megatron-style).  Three forms:
+
+    * DTensors on a mesh with a ``model`` axis: under ``shard_map``, ``x``
+      sharded over ``batch_axes`` on its first dim and over ``model`` on
+      its last, ``w`` over ``model`` on its first; the result is sharded
+      over ``batch_axes`` and whole over ``model``;
+    * plain tensors with ``group``: they are this rank's slices, summed
+      over ``group``;
+    * otherwise (one device, or a mesh without ``model``) ``x @ w``."""
     if group is not None:
-        raise NotImplementedError(
-            "the tensor-parallel bf16 combine is not ported to repro_torch "
-            "yet (ROADMAP.md, Queue 1 item 6); call it without a group")
-    return x @ w
+        return SR.sum_over((x @ w).to(torch.bfloat16), group)
+    if not isinstance(x, DTensor) or \
+            "model" not in x.device_mesh.mesh_dim_names:
+        return x @ w
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    ba = batch_axes
+    if isinstance(ba, tuple):
+        ba = tuple(a for a in ba if a in names) or None
+    elif ba not in names:
+        ba = None
+    nd = x.ndim
+    model = mesh.get_group("model")
+    return SR.shard_map(
+        functools.partial(tp_matmul_bf16reduce, group=model), mesh,
+        ((ba,) + (None,) * (nd - 2) + ("model",), ("model", None)),
+        ((ba,) + (None,) * (nd - 1),))(x, w)
 
 
 def mlp_specs(cfg) -> dict:
@@ -336,7 +402,12 @@ def mlp_specs(cfg) -> dict:
 
 
 def mlp(p, x, bf16_reduce: bool = False, batch_axes=None):
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    """SwiGLU.  On DTensors the weights' FSDP shards are gathered first
+    and the down product's partial sums all-reduced (column- then
+    row-parallel, as Megatron and the reference's GSPMD lay it out)."""
+    wg, wu, wd = (SR.fsdp_gather(p[k]) for k in ("w_gate", "w_up",
+                                                  "w_down"))
+    h = F.silu(x @ wg) * (x @ wu)
     if bf16_reduce:
-        return tp_matmul_bf16reduce(h, p["w_down"], batch_axes=batch_axes)
-    return h @ p["w_down"]
+        return tp_matmul_bf16reduce(h, wd, batch_axes=batch_axes)
+    return SR.reduce_partial(h @ wd)

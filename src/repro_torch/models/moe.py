@@ -10,14 +10,17 @@ padded with zeros.
 
 Every index is a device tensor and no mask selects rows (no ``nonzero``),
 so a decode step through an MoE layer never reads the device from the
-host.  The expert-parallel placement (``cfg.expert_parallel``) is a
-sharding of the multi-device LM (ROADMAP.md, Queue 1 item 6): on one
-device every expert is local.
+host.  On a mesh (DTensors) the routing and the dispatch run on each
+rank's rows of the batch under ``local_map``, and the experts' weights
+are sharded by the rules (over ``experts`` with ``expert_parallel``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import PSpec
 
@@ -82,41 +85,99 @@ def aux_loss(cfg, probs, top_e):
     return cfg.router_aux_coef * e * torch.sum(me * ce)
 
 
-def moe_ffn(cfg, p, x):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss float32 scalar)."""
+def _dispatch(cfg, r, x):
+    """The (B, E, cap, D) expert inputs of ``x`` under the plan ``r``."""
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    r = route(cfg, p, x)
-    cap, order, slot, keep = r["cap"], r["order"], r["slot"], r["keep"]
-    aux = aux_loss(cfg, r["probs"], r["top_e"])
-
+    e, k, cap = cfg.n_experts, cfg.top_k, r["cap"]
     rows = torch.arange(b, device=x.device)[:, None]
-    tok_idx = order // k  # token within group, in sorted order
-    tok_flat = (rows * s + tok_idx).reshape(-1)
+    tok_flat = (rows * s + r["order"] // k).reshape(-1)
     # dispatch: (b, e*cap + 1, d); the sentinel row takes every dropped
     # entry (written more than once: any of them, then sliced off)
     buf = x.new_zeros((b * (e * cap + 1), d))
-    buf.index_copy_(0, (rows * (e * cap + 1) + slot).reshape(-1),
+    buf.index_copy_(0, (rows * (e * cap + 1) + r["slot"]).reshape(-1),
                     x.reshape(b * s, d).index_select(0, tok_flat))
-    buf = buf.view(b, e * cap + 1, d)[:, :e * cap].reshape(b, e, cap, d)
+    return buf.view(b, e * cap + 1, d)[:, :e * cap].reshape(b, e, cap, d)
 
-    # expert computation (batched over groups and experts)
-    h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"]))
-    h = h * torch.einsum("becd,edf->becf", buf, p["w_up"])
-    y = torch.einsum("becf,efd->becd", h, p["w_down"])  # (b,e,cap,d)
 
-    # combine: gather back to sorted order, weight, add to the tokens.  A
-    # dropped entry reads some kept row and is zeroed by ``keep``, where
-    # the reference reads an appended zero row: the same sum
+def _combine(cfg, y, top_w, order, slot, keep):
+    """The tokens' outputs (B, S, D) from the experts' ``y`` (B,E,cap,D):
+    each token's top-k rows, weighted by the router."""
+    b, e, cap, d = y.shape
+    k = cfg.top_k
+    s = order.shape[1] // k
+    rows = torch.arange(b, device=y.device)[:, None]
+    tok_flat = (rows * s + order // k).reshape(-1)
+    # gather back to sorted order, weight, add to the tokens.  A dropped
+    # entry reads some kept row and is zeroed by ``keep``, where the
+    # reference reads an appended zero row: the same sum
     gathered = y.reshape(b * e * cap, d).index_select(
         0, (rows * (e * cap) + slot.clamp(max=e * cap - 1)).reshape(-1))
-    w_sorted = torch.take_along_dim(r["top_w"].reshape(b, s * k), order,
-                                    dim=-1)
+    w_sorted = torch.take_along_dim(top_w.reshape(b, s * k), order, dim=-1)
     gathered = gathered.view(b, s * k, d) * w_sorted[..., None].to(
         gathered.dtype)
     gathered = torch.where(keep[..., None], gathered, 0)
     # each token receives top_k terms onto a zero: with k = 2 the sum
     # does not depend on the order of the adds
-    out = x.new_zeros((b * s, d))
+    out = y.new_zeros((b * s, d))
     out.index_add_(0, tok_flat, gathered.reshape(b * s * k, d))
-    return out.view(b, s, d), aux
+    return out.view(b, s, d)
+
+
+def _experts(p, buf):
+    """The batched SwiGLU of every expert on its (B, E, cap, D) slots:
+    experts first, the groups' slots flattened, one ``bmm`` an expert
+    (a broadcast matmul would copy the weights for every row, and on
+    DTensors an einsum keeps permuted strides on its result, whose view
+    then fails in the backward).  On DTensors the weights' FSDP shards
+    are gathered first."""
+    from repro_torch.sharding import rules as SR
+
+    wg, wu, wd = (SR.fsdp_gather(p[k]) for k in ("w_gate", "w_up",
+                                                  "w_down"))
+    b, e, cap, d = buf.shape
+    xe = buf.permute(1, 0, 2, 3).reshape(e, b * cap, d)
+    h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+    y = SR.reduce_partial(torch.bmm(h, wd))
+    return y.reshape(e, b, cap, d).permute(1, 0, 2, 3)
+
+
+def moe_ffn(cfg, p, x):
+    """x: (B, S, D) -> (out (B, S, D), aux_loss float32 scalar)."""
+    if isinstance(x, DTensor):
+        return _moe_ffn_sharded(cfg, p, x)
+    r = route(cfg, p, x)
+    aux = aux_loss(cfg, r["probs"], r["top_e"])
+    y = _experts(p, _dispatch(cfg, r, x))
+    return _combine(cfg, y, r["top_w"], r["order"], r["slot"],
+                    r["keep"]), aux
+
+
+def _moe_ffn_sharded(cfg, p, x):
+    """The MoE layer on DTensors.  The routing and the dispatch (a stable
+    sort, the capacity slots, index copies: ops DTensor has no sharding
+    rule for) run under ``shard_map`` on each rank's rows of the batch,
+    whole along the sequence and the model dim (a group is a batch row,
+    so no plan crosses ranks); the experts' products are DTensor ops on
+    the sharded weights (over ``experts`` with ``expert_parallel``); the
+    combine runs under ``shard_map`` again, on the batch's rows."""
+    from repro_torch.sharding import rules as SR
+
+    mesh = x.device_mesh
+    rows = SR.spec_for(mesh, ("batch", None, None), tuple(x.shape))
+    two = rows[:2]
+    four = rows + (None,)
+
+    def plan(x, router):
+        r = route(cfg, {"router": router}, x)
+        return (_dispatch(cfg, r, x).contiguous(), r["probs"], r["top_e"],
+                r["top_w"], r["order"], r["slot"], r["keep"])
+
+    buf, probs, top_e, top_w, order, slot, keep = SR.shard_map(
+        plan, mesh, (rows, (None, None)),
+        (four, rows, rows, rows, two, two, two))(x, p["router"])
+    aux = aux_loss(cfg, probs, top_e)
+    y = _experts(p, buf)
+    out = SR.shard_map(functools.partial(_combine, cfg), mesh,
+                       (four, rows, two, two, two), (rows,))(
+        y, top_w, order, slot, keep)
+    return out, aux

@@ -21,10 +21,14 @@ deep stack's decode chain drift from its teacher forcing.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import PSpec
+from repro_torch.sharding import rules as SR
 
 LORA_R = 64
 
@@ -142,34 +146,71 @@ def time_mix_seq(cfg, p, x, state=None, x_prev=None):
     assert s % chunk == 0, (s, chunk)
     nch = s // chunk
 
+    u = p["bonus_u"].to(torch.float32)
+    S = (torch.zeros((b, h, dk, dk), dtype=torch.float32, device=x.device)
+         if state is None else state)
+    wkv = functools.partial(_wkv, chunk)
+    if isinstance(x, DTensor):
+        # each rank runs its rows of the batch and its heads (the rules'
+        # shards; the recurrence is independent across both)
+        mesh = x.device_mesh
+        hs = SR.spec_for(mesh, ("batch", None, "rwkv_heads", None),
+                         (b, s, h, dk))
+        ss = (hs[0], hs[2], None, None)
+        if not isinstance(S, DTensor):
+            S = SR.from_full(S, mesh, SR.placements(mesh, ss))
+        wkv = SR.shard_map(wkv, mesh, (hs,) * 4 + ((hs[2], None), ss),
+                           (hs, ss))
+    o, S = wkv(r, k, v, logw, u, S)
+    out = _out_proj(cfg, p, o, g, x.dtype)
+    return out, (S, x[:, -1])
+
+
+def _wkv(chunk, r, k, v, logw, u, S):
+    """The chunked form over the sequence from the state ``S``: (b,s,h,dk)
+    inputs -> (o (b,s,h,dv), S')."""
+    b, s, h, dk = r.shape
+    nch = s // chunk
+
     def per_chunk(a):  # (b,s,h,dk) -> (n,b,h,c,dk)
         return a.reshape(b, nch, chunk, h, dk).permute(1, 0, 3, 2, 4)
 
     rs, ks, vs, lw = (per_chunk(a) for a in (r, k, v, logw))
-    u = p["bonus_u"].to(torch.float32)
-    S = (torch.zeros((b, h, dk, dk), dtype=torch.float32, device=x.device)
-         if state is None else state)
     outs = []
     for i in range(nch):
         S, o = _chunk_step(S, rs[i], ks[i], vs[i], lw[i], u)
         outs.append(o)
-    o = torch.stack(outs, 0).permute(1, 0, 3, 2, 4).reshape(b, s, h, dk)
-    out = _out_proj(cfg, p, o, g, x.dtype)
-    return out, (S, x[:, -1])
+    return torch.stack(outs, 0).permute(1, 0, 3, 2, 4).reshape(
+        b, s, h, dk), S
 
 
 def time_mix_decode(cfg, p, x1, state, x_prev):
     """Single step: x1 (B,1,D); state (B,H,dk,dv); x_prev (B,D)."""
     r, k, v, g, logw = _time_mix_inputs(cfg, p, x1, x_prev)
+    u = p["bonus_u"].to(torch.float32)
+    step = _wkv_step
+    if isinstance(x1, DTensor):
+        # each rank steps its rows of the batch and its heads
+        mesh = x1.device_mesh
+        hs = SR.spec_for(mesh, ("batch", None, "rwkv_heads", None),
+                         tuple(r.shape))
+        ss = (hs[0], hs[2], None, None)
+        step = SR.shard_map(step, mesh, (hs,) * 4 + ((hs[2], None), ss),
+                            ((hs[0], hs[2], None), ss))
+    o, S_new = step(r, k, v, logw, u, state)
+    out = _out_proj(cfg, p, o[:, None], g, x1.dtype)
+    return out, S_new, x1[:, -1]
+
+
+def _wkv_step(r, k, v, logw, u, state):
+    """One decode step of the recurrence: (b,1,h,dk) inputs, state
+    (b,h,dk,dv) -> (o (b,h,dv), state')."""
     r32 = r[:, 0].to(torch.float32)  # (b,h,dk)
     k32 = k[:, 0].to(torch.float32)
     v32 = v[:, 0].to(torch.float32)
-    u = p["bonus_u"].to(torch.float32)
     kv = torch.einsum("bhi,bhj->bhij", k32, v32)
     o = torch.einsum("bhi,bhij->bhj", r32, state + u[..., None] * kv)
-    S_new = torch.exp(logw[:, 0])[..., None] * state + kv
-    out = _out_proj(cfg, p, o[:, None], g, x1.dtype)
-    return out, S_new, x1[:, -1]
+    return o, torch.exp(logw[:, 0])[..., None] * state + kv
 
 
 def channel_mix(cfg, p, x, x_prev=None):

@@ -29,13 +29,30 @@ patches or the encoder's frames), ``mamba`` (``models/mamba.py``) and
 step updates every cache leaf of its block in place: the attention's
 K/V slot, and the recurrent states (``ssm``, ``conv``, ``wkv``,
 ``tm_x``, ``cm_x``) copied into their block's slice; the cross K/V made
-at prefill are read only.  The sharded shape trees wait for the sharding
-rules (ROADMAP.md, Queue 1 item 6).
+at prefill are read only.
+
+On a mesh the same ``forward`` runs on DTensors (``torch.distributed.
+tensor``, the counterpart of the reference's GSPMD): every leaf carries
+logical axes, ``sharding.rules`` maps them to placements
+(``shape_tree``, ``param_shardings``, ``cache_shape_tree`` give the
+sharded trees as :class:`TensorSpec` leaves; ``distribute_params`` and
+``init_local_params`` make the DTensors), sharding propagation inserts
+the collectives, and ``_constrain`` is a ``redistribute``.  Where
+DTensor has no rule for an op, or its rule fails, the op runs on each
+rank's shards under ``shard_map`` (``local_map``): the attention, the
+MoE's routing and dispatch, the Mamba and RWKV scans, the embedding
+lookup, and the decode's cache write, which lands on the rank whose
+sequence shard holds ``pos``.  The plain tensors ``forward`` makes
+(positions, masks) count as replicated (``sharding.rules.on_mesh``).
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.runtime import resolve_device
@@ -43,6 +60,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
+from repro_torch.sharding import rules as SR
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +196,135 @@ def param_count(tree) -> int:
 
 
 # ---------------------------------------------------------------------------
+# sharded trees (the reference's ShapeDtypeStructs with NamedShardings)
+# ---------------------------------------------------------------------------
+
+class TensorSpec(NamedTuple):
+    """A leaf of a sharded shape tree: the global shape and dtype, the
+    spec on the mesh (``sharding.rules.spec_for``) and one rank's shard
+    shape.  Nothing is allocated."""
+
+    shape: tuple
+    dtype: torch.dtype
+    spec: tuple
+    local_shape: tuple
+
+    @property
+    def local_bytes(self) -> int:
+        return math.prod(self.local_shape) * _itemsize(self.dtype)
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def tensor_spec(mesh, shape, dtype, logical, rules=None) -> TensorSpec:
+    spec = SR.spec_for(mesh, logical, shape, rules)
+    return TensorSpec(tuple(shape), dtype, spec,
+                      SR.local_shape(mesh, spec, shape))
+
+
+def _rules(cfg, rules):
+    """The reference's merge order: the config's rules override."""
+    return {**(rules or {}), **SR.rules_for_config(cfg)}
+
+
+def shape_tree(cfg, mesh, rules=None) -> dict:
+    """The parameter tree as :class:`TensorSpec` leaves on ``mesh``."""
+    rules = _rules(cfg, rules)
+    return tree_map(lambda ps: tensor_spec(mesh, ps.shape, cfg.dtype,
+                                           ps.logical, rules),
+                    param_specs(cfg))
+
+
+def param_shardings(cfg, mesh, rules=None) -> dict:
+    rules = _rules(cfg, rules)
+    return tree_map(lambda ps: SR.sharding_for(mesh, ps.logical, ps.shape,
+                                               rules), param_specs(cfg))
+
+
+def cache_shape_tree(cfg, mesh, batch, cache_len, rules=None, **kw) -> dict:
+    """The decode cache as :class:`TensorSpec` leaves on ``mesh``."""
+    rules = _rules(cfg, rules)
+    return tree_map(lambda s: tensor_spec(mesh, s[0], s[2], s[1], rules),
+                    cache_specs(cfg, batch, cache_len, **kw),
+                    is_leaf=_is_cache_leaf)
+
+
+def place_cache(cfg, cache: dict, dmesh, rules=None, **kw) -> dict:
+    """A decode cache (a prefill's, as DTensors in whatever placements
+    the prefill gave, or whole tensors) placed by the rules on the
+    ``DeviceMesh`` ``dmesh``, as :func:`cache_shape_tree` gives them;
+    ``pos`` stays as it is."""
+    k0 = next(t for path, t in tree_leaves(cache) if path != "pos")
+    b = k0.shape[1]
+    clen = max([t.shape[2] for path, t in tree_leaves(cache)
+                if path.endswith((".k", ".v"))] or [1])
+    specs = cache_shape_tree(cfg, dmesh, b, clen, rules, **kw)
+
+    def one(path, t):
+        if path == "pos":
+            return t
+        pl = SR.placements(dmesh, specs_flat[path].spec)
+        if isinstance(t, DTensor):
+            return t.redistribute(dmesh, pl)
+        return SR.from_full(t, dmesh, pl)
+
+    specs_flat = dict(tree_leaves(specs, _is_tensor_spec))
+    return _unflatten(cache, {p: one(p, t) for p, t in tree_leaves(cache)},
+                      lambda x: not isinstance(x, dict))
+
+
+def tree_bytes(tree) -> int:
+    """One rank's bytes of a :class:`TensorSpec` tree."""
+    return sum(t.local_bytes for _, t in tree_leaves(tree, _is_tensor_spec))
+
+
+def _is_tensor_spec(x) -> bool:
+    return isinstance(x, TensorSpec)
+
+
+def _placed(cfg, dmesh, rules):
+    """path -> (PSpec, spec, DTensor placements) of every parameter
+    leaf."""
+    rules = _rules(cfg, rules)
+    out = {}
+    for path, ps in tree_leaves(param_specs(cfg), _is_spec):
+        spec = SR.spec_for(dmesh, ps.logical, ps.shape, rules)
+        out[path] = (ps, spec, SR.placements(dmesh, spec))
+    return out
+
+
+def distribute_params(cfg, tree: dict, dmesh, rules=None) -> dict:
+    """A full parameter tree (every rank holds all of it, as
+    :func:`params_from_numpy` makes it) as DTensors on the
+    ``DeviceMesh`` ``dmesh``: each rank keeps its own shard of each leaf,
+    placed by the sharding rules; nothing crosses the group."""
+    placed = _placed(cfg, dmesh, rules)
+    leaves = {path: SR.from_full(t, dmesh, placed[path][2])
+              for path, t in tree_leaves(tree)}
+    return _unflatten(tree, leaves, lambda x: not isinstance(x, dict))
+
+
+def init_local_params(cfg, dmesh, seed: int = 0, device=None,
+                      rules=None) -> dict:
+    """A random parameter tree as DTensors on ``dmesh`` whose every rank
+    draws only its own shards (the full tree is never made: qwen2-72b is
+    145 GB in bf16).  Each leaf has the reference's distribution
+    (``layers.init_std`` of the GLOBAL spec); the numbers come from one
+    ``torch.Generator`` seeded by ``seed`` and this rank's coordinate."""
+    dev = resolve_device(device)
+    gen = SR.rank_generator(dmesh, seed, dev)
+    leaves = {}
+    for path, (ps, spec, pl) in _placed(cfg, dmesh, rules).items():
+        shp = SR.local_shape(dmesh, spec, ps.shape)
+        local = L.init_param(gen, ps._replace(shape=shp), cfg.dtype, dev,
+                             std=float(L.init_std(ps)))
+        leaves[path] = SR.from_local(local, dmesh, pl, ps.shape)
+    return _unflatten(param_specs(cfg), leaves, _is_spec)
+
+
+# ---------------------------------------------------------------------------
 # cache
 # ---------------------------------------------------------------------------
 
@@ -235,6 +382,40 @@ def cache_zeros(cfg, batch, cache_len, *, device=None, **kw) -> dict:
 # layer application
 # ---------------------------------------------------------------------------
 
+def _constrain(x, *axes):
+    """The reference's ``with_sharding_constraint``: a DTensor
+    redistributed to the spec ``axes`` (an entry a dim: ``None``, a mesh
+    axis or a tuple of them) on its own mesh; a no-op off a mesh, or
+    when an axis is not in the mesh, as there."""
+    if not isinstance(x, DTensor):
+        return x
+    names = set(x.device_mesh.mesh_dim_names)
+    flat = [a for e in axes if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))]
+    if not all(a in names for a in flat):
+        return x
+    return x.redistribute(x.device_mesh,
+                          SR.placements(x.device_mesh, tuple(axes)))
+
+
+def _batch_axes(x):
+    """Mesh axes carrying the batch dim on ``x``'s mesh (if any), as the
+    rules' ``batch`` gives them."""
+    if not isinstance(x, DTensor):
+        return None
+    return SR.spec_for(x.device_mesh, ("batch",), (0,))[0]
+
+
+def _constrain_act(cfg, x):
+    """Layer-boundary activation pin (perf knob ``shard_activations``):
+    keeps (B, S, D) batch-sharded so the propagation gathers the (small)
+    FSDP weight shards instead of the (huge) activations."""
+    if not cfg.shard_activations:
+        return x
+    seq = "model" if cfg.attn_seq_shard else None
+    return _constrain(x, _batch_axes(x), seq, None)
+
+
 def _repeat_kv(cfg, k):
     """Repeat kv heads to n_heads for sequence attention (``jnp.repeat``
     along heads: each kv head ``g`` times in a row)."""
@@ -254,27 +435,33 @@ def _attn_seq(cfg, p, x, positions, *, causal=True, make_cache=False,
     q, k, v = L.qkv_project(cfg, p, L.rms_norm(x, p["norm"]))
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
-    kf, vf = _repeat_kv(cfg, k), _repeat_kv(cfg, v)
     s = x.shape[1]
-    if attn_branch(cfg, s) == "flash":
-        o = L.flash_attention(q, kf, vf, causal=causal, window=cfg.window,
-                              chunk=cfg.attn_chunk)
+    flash = attn_branch(cfg, s) == "flash"
+    if isinstance(q, DTensor):
+        o = _attn_sharded(cfg, q, k, v, causal=causal, flash=flash)
     else:
-        o = L.attn_naive(q, kf, vf, causal=causal, window=cfg.window)
-    out = torch.einsum("bshd,hde->bse", o, p["wo"])
+        kf, vf = _repeat_kv(cfg, k), _repeat_kv(cfg, v)
+        if flash:
+            o = L.flash_attention(q, kf, vf, causal=causal,
+                                  window=cfg.window, chunk=cfg.attn_chunk)
+        else:
+            o = L.attn_naive(q, kf, vf, causal=causal, window=cfg.window)
+    out = L.proj_out(o, p["wo"])
     if not make_cache:
         return out, None
     clen = max(cache_len or s, s)
     if cfg.window:  # ring buffer holds the last `window` positions
+        # position t lands in slot t % w: the last w positions rolled by
+        # s % w, or the s < w positions at the front (the reference's
+        # scatter, as slices, a cat and a pad, which DTensor also takes)
         w = cfg.window
-        keep = min(s, w)
-        idx = torch.arange(s - keep, s, device=x.device) % w
-        ck = torch.zeros((k.shape[0], w) + k.shape[2:], dtype=k.dtype,
-                         device=k.device)
-        cv = torch.zeros_like(ck)
-        ck[:, idx] = k[:, -keep:]
-        cv[:, idx] = v[:, -keep:]
-        return out, (ck, cv)
+        if s >= w:
+            r = s % w  # torch.roll(t, r, dims=1), as slices and a cat
+            return out, tuple(torch.cat([t[:, s - r:], t[:, s - w:s - r]],
+                                        dim=1) for t in (k, v))
+        pad = (0, 0, 0, 0, 0, w - s)
+        return out, (torch.nn.functional.pad(k, pad),
+                     torch.nn.functional.pad(v, pad))
     if clen > s:  # headroom for subsequent decode steps
         pad = (0, 0, 0, 0, 0, clen - s)
         k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
@@ -288,25 +475,97 @@ def _attn_decode(cfg, p, x1, k_cache, v_cache, pos):
     ppos = pos.reshape(1, 1).expand(x1.shape[0], 1)
     q = L.rope(q, ppos, cfg.rope_theta)
     k = L.rope(k, ppos, cfg.rope_theta)
+    if isinstance(k_cache, DTensor):
+        o = _attn_decode_sharded(cfg, q, k, v, k_cache, v_cache, pos)
+        return L.proj_out(o, p["wo"]), k_cache, v_cache
     clen = k_cache.shape[1]
-    slot_ids = torch.arange(clen, device=x1.device)
-    if cfg.window:
-        # floor-mod (torch's %), as jnp's
-        slot = pos % clen
-        slot_pos = pos - ((pos - slot_ids) % clen)
-        valid = slot_pos >= 0
-    else:
-        # dynamic_update_slice clamps its start into range: a position past
-        # the cache writes the last slot
-        slot = pos.clamp(0, clen - 1)
-        valid = slot_ids <= pos
+    slot, valid = _slots(cfg, pos, torch.arange(clen, device=x1.device),
+                         clen)
     idx = slot.reshape(1).to(torch.int64)
     k_cache.index_copy_(1, idx, k)
     v_cache.index_copy_(1, idx, v)
-    if cfg.window:
-        valid = valid | (slot_ids == slot)
     o = L.attn_decode(q, k_cache, v_cache, valid)
-    return torch.einsum("bshd,hde->bse", o, p["wo"]), k_cache, v_cache
+    return L.proj_out(o, p["wo"]), k_cache, v_cache
+
+
+def _attn_sharded(cfg, q, k, v, *, causal, flash, window="cfg"):
+    """The attention of ``q`` (B,S,H,Dh) over ``k``/``v`` (B,Sk,KV,Dh) on
+    DTensors, under ``shard_map``: each rank takes its rows of the batch
+    and, where the heads split over ``model``, its query heads, and
+    attends with the kv head of each (the reference's ``jnp.repeat`` of
+    the kv heads, then this rank's slice of them; the same products as
+    the grouped attention of the cross layers).  The keys and values are
+    whole over the heads; their gradients come back as partial sums."""
+    window = cfg.window if window == "cfg" else window
+    mesh = q.device_mesh
+    b, s, h, dh = q.shape
+    g = h // k.shape[2]
+    qs = SR.spec_for(mesh, ("batch", None, "heads", None), tuple(q.shape))
+    ks = (qs[0], None, None, None)
+    heads = qs[2] if isinstance(qs[2], tuple) else (
+        () if qs[2] is None else (qs[2],))
+    shard = SR.shard_index(mesh, [mesh.mesh_dim_names.index(a)
+                                  for a in heads])
+
+    def local(q, k, v):
+        hl = q.shape[2]
+        sel = (shard * hl + torch.arange(hl, device=q.device)) // g
+        kf, vf = k.index_select(2, sel), v.index_select(2, sel)
+        if flash:
+            return L.flash_attention(q, kf, vf, causal=causal,
+                                     window=window, chunk=cfg.attn_chunk)
+        return L.attn_naive(q, kf, vf, causal=causal, window=window)
+
+    return SR.shard_map(local, mesh, (qs, ks, ks), (qs,))(q, k, v)
+
+
+def _slots(cfg, pos, slot_ids, clen):
+    """The slot a decode step at ``pos`` writes and the mask of the slots
+    ``slot_ids`` it attends to, in a cache of ``clen`` slots."""
+    if cfg.window:
+        # floor-mod (torch's %), as jnp's
+        slot = pos % clen
+        valid = (pos - ((pos - slot_ids) % clen)) >= 0
+        return slot, valid | (slot_ids == slot)
+    # dynamic_update_slice clamps its start into range: a position past
+    # the cache writes the last slot
+    return pos.clamp(0, clen - 1), slot_ids <= pos
+
+
+def _attn_decode_sharded(cfg, q, k, v, k_cache, v_cache, pos):
+    """The decode attention on a cache sharded over the mesh (DTensors),
+    on each rank's local tensors (no gradient flows in decode): the rank
+    writes the step's K/V into its own shard of the cache when the slot
+    falls in it (an offset from the shard's first slot, clamped, and a
+    ``where`` that keeps the old row elsewhere; nothing is read to the
+    host), attends over its shard, and the softmax's max, sum and output
+    are combined over the mesh dims that shard the sequence.  Returns
+    ``o`` (B,1,H,Dh) as a DTensor."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = k_cache.device_mesh
+    cpl = k_cache.placements
+    seq_dims = [i for i, pl in enumerate(cpl) if pl == Shard(1)]
+    # q/k/v follow the cache's batch and kv-head shards, whole elsewhere
+    qpl = tuple(pl if pl in (Shard(0), Shard(2)) else Replicate()
+                for pl in cpl)
+    groups = [mesh.get_group(i) for i in seq_dims]
+    nseq = math.prod(mesh.size(i) for i in seq_dims)
+    shard = SR.shard_index(mesh, seq_dims)
+    ql, kl, vl = (t.redistribute(mesh, qpl).to_local() for t in (q, k, v))
+    kc, vc = k_cache.to_local(), v_cache.to_local()
+    sl = kc.shape[1]
+    first = shard * sl
+    slot_ids = first + torch.arange(sl, device=kc.device)
+    slot, valid = _slots(cfg, pos, slot_ids, sl * nseq)
+    off = slot - first
+    here = (off >= 0) & (off < sl)
+    li = off.clamp(0, sl - 1).reshape(1).to(torch.int64)
+    for c, new in ((kc, kl), (vc, vl)):
+        c.index_copy_(1, li, torch.where(here, new.to(c.dtype),
+                                         c.index_select(1, li)))
+    o = L.attn_decode(ql, kc, vc, valid, seq_groups=groups)
+    return SR.from_local(o, mesh, qpl, tuple(q.shape))
 
 
 def _cross_attn(cfg, p, x, ext_kv=None, ck=None, cv=None):
@@ -318,16 +577,19 @@ def _cross_attn(cfg, p, x, ext_kv=None, ck=None, cv=None):
     if ck is None:
         q, ck, cv = L.qkv_project(cfg, p, xq, kv_x=ext_kv)
     else:
-        q = torch.einsum("bsd,dhk->bshk", xq, p["wq"])
+        q = L.proj_heads(xq, p["wq"])
         if "qnorm" in p:
             q = L.rms_norm(q, p["qnorm"])
-    if q.shape[1] == 1:
+    if isinstance(q, DTensor):
+        o = _attn_sharded(cfg, q, ck, cv, causal=False, flash=False,
+                          window=None)
+    elif q.shape[1] == 1:
         valid = torch.ones((ck.shape[1],), dtype=torch.bool,
                            device=x.device)
         o = L.attn_decode(q, ck, cv, valid)
     else:
         o = L.attn_naive(q, ck, cv, causal=False)
-    return torch.einsum("bshd,hde->bse", o, p["wo"]), ck, cv
+    return L.proj_out(o, p["wo"]), ck, cv
 
 
 def apply_layer(cfg, kind, p, x, *, positions, ext_kv=None, cache=None,
@@ -394,7 +656,7 @@ def apply_layer(cfg, kind, p, x, *, positions, ext_kv=None, cache=None,
         x = x + o
     if ffn == "mlp":
         x = x + L.mlp(p["mlp"], L.rms_norm(x, p["mlp"]["norm"]),
-                      bf16_reduce=cfg.bf16_reduce)
+                      bf16_reduce=cfg.bf16_reduce, batch_axes=_batch_axes(x))
     elif ffn == "moe":
         o, a = MOE.moe_ffn(cfg, p["moe"], L.rms_norm(x, p["moe"]["norm"]))
         x = x + o
@@ -405,6 +667,37 @@ def apply_layer(cfg, kind, p, x, *, positions, ext_kv=None, cache=None,
 # ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
+
+def _head(x, embed):
+    """The tied LM head, ``einsum("bsd,vd->bsv")`` in float32, as a
+    matmul.  On DTensors ``x`` is batch-sharded and whole along D and
+    the embedding vocab-sharded and whole along D (its FSDP shards
+    gathered): the logits come out sharded over the batch and the vocab,
+    never whole (a propagation left free gathers them whole on torch
+    2.11: 297 GiB for qwen3-4b's ``train_4k``)."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        x = x.redistribute(mesh, SR.placements(mesh, SR.spec_for(
+            mesh, ("batch", None, None), tuple(x.shape))))
+        embed = embed.redistribute(mesh, SR.placements(mesh, SR.spec_for(
+            mesh, ("vocab", None), tuple(embed.shape))))
+    return (x @ embed.transpose(0, 1)).to(torch.float32)
+
+
+def _layer(a, i: int):
+    """Block ``i`` of a stacked cache leaf, as a view: on a DTensor, a
+    DTensor over the view of its local tensor (its stacked dim is never
+    sharded), so that a decode step's writes land in the stacked
+    cache."""
+    if not isinstance(a, DTensor):
+        return a[i]
+    from torch.distributed.tensor import Shard
+
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+               for p in a.placements)
+    return SR.from_local(a.to_local()[i], a.device_mesh, pl,
+                         tuple(a.shape[1:]))
+
 
 def block_views(stacked: dict, n: int) -> list:
     """Block ``i``'s tree of ``stacked`` (leaves ``(n, ...)``), for each
@@ -419,7 +712,8 @@ def _encoder(cfg, params, frames):
     """Whisper-style encoder over precomputed frame embeddings (stub
     frontend): bidirectional ``attn+mlp`` blocks, then ``encoder.norm``."""
     b, s, _ = frames.shape
-    positions = torch.arange(s, device=frames.device).expand(b, s)
+    positions = SR.replicated(
+        torch.arange(s, device=frames.device).expand(b, s), frames)
     x = frames
     views = block_views(params["encoder"]["blocks"], cfg.n_enc_layers)
     for i in range(cfg.n_enc_layers):
@@ -434,12 +728,25 @@ def forward(cfg, params, tokens, *, ext_embed=None, mode="train",
             cache=None, cache_len=None):
     """tokens (B,S) int; ext_embed (B,L,D) — image patches / audio frames.
 
-    Returns (logits, new_cache | None, aux_loss)."""
+    Returns (logits, new_cache | None, aux_loss).  On a mesh (DTensor
+    parameters) the plain tensors made here count as replicated."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
+    with SR.on_mesh(params):
+        return _forward(cfg, params, tokens, ext_embed, mode, cache,
+                        cache_len)
+
+
+def _forward(cfg, params, tokens, ext_embed, mode, cache, cache_len):
     b, s = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens].to(cfg.dtype)
+    if isinstance(params["embed"], DTensor):
+        # the lookup on each rank's vocab rows (DTensor's own rule for the
+        # backward's index_put fails on torch 2.11)
+        x = SR.reduce_partial(SR.vocab_gather(
+            params["embed"], tokens, ("batch", None))).to(cfg.dtype)
+    else:
+        x = params["embed"][tokens].to(cfg.dtype)
     ext_kv = None
     if cfg.is_encoder_decoder and mode != "decode":
         ext_kv = _encoder(cfg, params, ext_embed)
@@ -450,19 +757,23 @@ def forward(cfg, params, tokens, *, ext_embed=None, mode="train",
         positions = pos.reshape(1, 1).expand(b, 1)
     else:
         pos = None
-        positions = torch.arange(s, device=dev).expand(b, s)
+        positions = SR.replicated(torch.arange(s, device=dev).expand(b, s),
+                                  params["embed"])
 
     def superblock(x, bp, bc):
         aux = 0.0
         newc = {}
-        for i, kind in enumerate(cfg.block_pattern):
-            c_i = bc[f"p{i}"] if bc is not None else None
-            x, nc, a = apply_layer(cfg, kind, bp[f"p{i}"], x,
-                                   positions=positions, ext_kv=ext_kv,
-                                   cache=c_i, pos=pos, mode=mode,
-                                   cache_len=cache_len)
-            aux = aux + a
-            newc[f"p{i}"] = nc
+        # entered again here: remat recomputes this outside ``forward``
+        with SR.on_mesh(bp):
+            x = _constrain_act(cfg, x)
+            for i, kind in enumerate(cfg.block_pattern):
+                c_i = bc[f"p{i}"] if bc is not None else None
+                x, nc, a = apply_layer(cfg, kind, bp[f"p{i}"], x,
+                                       positions=positions, ext_kv=ext_kv,
+                                       cache=c_i, pos=pos, mode=mode,
+                                       cache_len=cache_len)
+                aux = aux + a
+                newc[f"p{i}"] = nc
         return x, aux, newc
 
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
@@ -472,8 +783,8 @@ def forward(cfg, params, tokens, *, ext_embed=None, mode="train",
     views = block_views(params["blocks"], cfg.n_blocks)
     for i in range(cfg.n_blocks):
         bp_i = views[i]
-        bc_i = tree_map(lambda a: a[i], bc_all) if bc_all is not None \
-            else None
+        bc_i = tree_map(lambda a: _layer(a, i), bc_all) \
+            if bc_all is not None else None
         if remat:
             x, a, nc = checkpoint(superblock, x, bp_i, bc_i,
                                   use_reentrant=False)
@@ -502,7 +813,7 @@ def forward(cfg, params, tokens, *, ext_embed=None, mode="train",
         # full (B, S, V) head drops its flops
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"])
-    logits = torch.einsum("bsd,vd->bsv", x, params["embed"]).to(torch.float32)
+    logits = _head(x, params["embed"])
     if not torch.is_tensor(aux):
         aux = torch.full((), aux, dtype=torch.float32, device=dev)
     new_cache = None

@@ -7,12 +7,16 @@ with a per-leaf scale, sum over pods, dequantize, and carry the
 quantization error into the next step (error feedback keeps the scheme
 unbiased in the long run; Karimireddy et al. 2019).
 
-``make_error_feedback_compressor`` is the drop-in ``compressor`` of
-``make_train_step`` (it models the cross-pod hop in one program).  The
-explicit collective form, ``hierarchical_pod_psum``, comes with the
-multi-device LM (ROADMAP.md, Queue 1 item 6).  ``torch.round`` rounds
-half to even, as ``jnp.round`` does, so ``q`` is the reference's bit for
-bit.
+Two entry points:
+
+* ``make_error_feedback_compressor`` — the drop-in ``compressor`` of
+  ``make_train_step`` (it models the cross-pod hop in one program);
+* ``hierarchical_pod_psum`` — the explicit collective form over two
+  ``torch.distributed`` groups (the reference's ``shard_map`` version
+  over mesh axes), for a hand-scheduled gradient reduction.
+
+``torch.round`` rounds half to even, as ``jnp.round`` does, so ``q`` is
+the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -54,3 +58,31 @@ def make_error_feedback_compressor():
         return newg, newe
 
     return init, compress
+
+
+def hierarchical_pod_psum(tree, *, in_pod_group, pod_group,
+                          compress: bool = True):
+    """Sum every leaf of ``tree`` (this rank's gradients) over the
+    in-pod group at full precision, then over ``pod_group`` compressed:
+    each pod's sum quantized to int8 with its scale (:func:`_quantize`,
+    in float32), the ``q`` summed as int32 and the scales averaged; the
+    result is ``qsum * mean(scale)`` in the leaf's dtype.  With
+    ``compress=False`` the second sum is a plain all-reduce.  Returns a
+    new tree; the inputs are not written."""
+    import torch.distributed as dist
+
+    def one(g):
+        g = g.clone()
+        dist.all_reduce(g, group=in_pod_group)
+        if not compress:
+            dist.all_reduce(g, group=pod_group)
+            return g
+        q, scale = _quantize(g.float())
+        qsum = q.to(torch.int32)
+        dist.all_reduce(qsum, group=pod_group)
+        dist.all_reduce(scale, group=pod_group)
+        smean = scale / dist.get_world_size(pod_group)
+        return (qsum.float() * smean).to(g.dtype)
+
+    with torch.no_grad():
+        return tree_map(one, tree)

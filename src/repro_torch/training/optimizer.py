@@ -27,8 +27,10 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.transformer import tree_leaves, tree_map
+from repro_torch.sharding import rules as SR
 
 
 class Optimizer(NamedTuple):
@@ -59,6 +61,11 @@ def clip_by_global_norm(tree, max_norm: float):
     returns ``(tree, norm)``.  The product is taken in float32 and cast
     back, as JAX promotes a bf16 leaf times a float32 scale (a bf16 tensor
     times a 0-d float32 tensor would be computed in bf16 by PyTorch)."""
+    with SR.on_mesh(tree):
+        return _clip(tree, max_norm)
+
+
+def _clip(tree, max_norm: float):
     norm = global_norm(tree)
     # a tensor over a tensor: ``max_norm / t`` would be computed as
     # ``reciprocal(t) * max_norm``, rounded twice
@@ -74,17 +81,38 @@ def _count(params):
     return torch.zeros((), dtype=torch.int32, device=leaf.device)
 
 
+def _zeros_reduced(p, drop: int):
+    """float32 zeros of ``p``'s shape without dim ``drop`` (Adafactor's
+    row or column statistic).  For a DTensor ``p`` they are a DTensor
+    sharded as ``p`` along the dims they keep, so that the
+    preconditioner ``vr x vc`` is formed a shard at a time (the
+    reference leaves these states unplaced)."""
+    shape = p.shape[:drop] + p.shape[drop + 1:]
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    pl = tuple(Replicate() if q == Shard(drop) else
+               Shard(q.dim - 1) if isinstance(q, Shard) and q.dim > drop
+               else q for q in p.placements)
+    return SR.from_full(torch.zeros(shape, dtype=torch.float32,
+                                    device=p.device), p.device_mesh, pl)
+
+
 def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.1) -> Optimizer:
     def init(params):
-        return {"mu": tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device), params),
-                "nu": tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device), params),
+        # zeros_like: a DTensor parameter's moments are sharded as it is
+        return {"mu": tree_map(lambda p: torch.zeros_like(
+                    p, dtype=torch.float32), params),
+                "nu": tree_map(lambda p: torch.zeros_like(
+                    p, dtype=torch.float32), params),
                 "count": _count(params)}
 
     @torch.no_grad()
     def update(grads, state, params):
+        with SR.on_mesh(params):
+            return _update(grads, state, params)
+
+    def _update(grads, state, params):
         c = state["count"].add_(1)
         bc1 = 1 - torch.pow(b1, c.float())
         bc2 = 1 - torch.pow(b2, c.float())
@@ -114,15 +142,18 @@ def adafactor(lr: float = 3e-4, decay: float = 0.8, eps: float = 1e-30,
 
     def init(params):
         def one(p):
-            z = dict(dtype=torch.float32, device=p.device)
             if _factored(p.shape):
-                return {"vr": torch.zeros(p.shape[:-1], **z),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
-            return {"v": torch.zeros(p.shape, **z)}
+                return {"vr": _zeros_reduced(p, p.ndim - 1),
+                        "vc": _zeros_reduced(p, p.ndim - 2)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
         return {"v": tree_map(one, params), "count": _count(params)}
 
     @torch.no_grad()
     def update(grads, state, params):
+        with SR.on_mesh(params):
+            return _update(grads, state, params)
+
+    def _update(grads, state, params):
         c = state["count"].add_(1)
         beta = 1.0 - (c.float() + 1.0) ** (-decay)
 

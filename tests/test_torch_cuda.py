@@ -1164,3 +1164,69 @@ def test_bf16_checkpoint_from_the_card_is_bit_equal(cuda, tmp_path):
             if w.dtype == torch.bfloat16:
                 g, w = g.view(torch.int16), w.view(torch.int16)
             assert torch.equal(g.cpu(), w), path
+
+
+def test_lm_dryrun_rank_on_the_card(cuda):
+    """One rank of a small LM cell on the card under the fake group:
+    qwen3-4b SMOKE at 3 superblocks, a decode cell of 8 x 64 on a (2, 2)
+    mesh; its record names the card, has device times and a peak, and
+    its 1/2-superblock extrapolation equals the whole run in flops and
+    collective bytes; no kernel launched."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as tshapes
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = dataclasses.replace(registry.get_smoke_config("qwen3-4b"),
+                              n_layers=3)
+    cell = tshapes.ShapeCell("decode_small", "decode", 64, 8)
+    rec = dryrun.run_cell("qwen3-4b", cell, mesh=Mesh((2, 2), (
+        "data", "model")), cfg=cfg, reps=1, full_depth=True)
+    assert rec["device"] == "cuda" and rec["device_name"] == \
+        torch.cuda.get_device_name(0)
+    e, f = rec["extrapolated"], rec["full_run"]
+    assert e["flops"] == f["flops"] > 0
+    assert e["collective_bytes"] == f["collectives"]["total_bytes"] > 0
+    assert f["device_ms"] > 0 and f["peak_allocated_bytes"] > 0
+    assert f["kernel_launches"] == 0
+
+
+def test_gpipe_one_stage_on_nccl_matches_value_and_grad(cuda):
+    """GPipe at ``stages=1``, 4 microbatches, on a one-rank NCCL group:
+    qwen3-4b SMOKE at 2 layers in float32 against ``value_and_grad`` on
+    the card (the loss within 1e-4 relative, each gradient leaf within
+    5e-3 of its rms, the reference pipeline test's tolerances)."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.training import pipeline_pp as PP
+    from repro_torch.training import train_step as S
+
+    cfg = dataclasses.replace(registry.get_smoke_config("qwen3-4b"),
+                              dtype=torch.float32)
+    params = T.init_params(cfg, 0, device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    tok = torch.randint(0, cfg.vocab, (4, 16), generator=gen, device=cuda)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        loss, grads = PP.make_pp_grad(cfg, dist.group.WORLD, stages=1,
+                                      microbatches=4)(params, batch)
+    finally:
+        dist.destroy_process_group()
+    (want, _), wgrads = S.value_and_grad(S.make_loss_fn(cfg))(params, batch)
+    assert abs(float(loss) - float(want)) <= 1e-4 * abs(float(want))
+    for (p, g), (_, w) in zip(T.tree_leaves(grads), T.tree_leaves(wgrads)):
+        rms = float(w.float().pow(2).mean().sqrt())
+        assert float((g - w).abs().max()) <= 5e-3 * rms, p

@@ -142,9 +142,35 @@ def test_lm_configs_equal_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
-def test_lm_dryrun_cells_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 items 4-6"):
-        dryrun.run_cell(arch, "train_4k", device="cpu")
+def test_lm_dryrun_cells_are_not_ported_yet(arch, monkeypatch):
+    """Once refused, an LM arch's cells now run (the LM cells of the dry
+    run are ported): ``run_cell`` builds every production cell's record
+    (its lowering stubbed here: the LM cells' own tests below run it),
+    and ``long_500k`` on a full-attention arch gives the reference's skip
+    record."""
+    seen = []
+    monkeypatch.setattr(dryrun, "_lower_lm", lambda cfg, cell, *a: (
+        seen.append((cfg.name, cell.name)) or {
+            "variant_costs": {}, "extrapolated": {
+                "peak_allocated_bytes": None}}))
+    cfg = registry.get_config(arch)
+    for shape in shapes.LM_SHAPES:
+        for mp in (False, True):
+            rec = dryrun.run_cell(arch, shape, mp, device="cpu")
+            assert (rec["arch"], rec["shape"], rec["mesh"]) == (
+                arch, shape, "2x16x16" if mp else "16x16")
+            cells = [c.name for c in shapes.cells_for(cfg)]
+            if shape in cells:
+                assert not rec["skipped"] and rec["kind"] == \
+                    shapes.LM_SHAPES[shape].kind
+                assert rec["full"]["memory"]["arg_bytes"]["total"] > 0
+            else:
+                assert rec == {"arch": arch, "shape": shape,
+                               "mesh": rec["mesh"], "skipped": True,
+                               "reason": "full-attention arch: "
+                               "long-context decode is quadratic; skipped "
+                               "per DESIGN.md §5"}
+    assert len(seen) == 2 * len(shapes.cells_for(cfg))
 
 
 def test_shapes_match_the_reference():
@@ -218,8 +244,13 @@ def test_graph_specs_match_the_reference(reference, shape, multi_pod, mode):
 
 
 def test_jobs_cover_twelve_cells():
+    """``--all --arch wbpr-maxflow`` covers the twelve graph cells; without
+    the arch, every LM arch's four shapes on both meshes too."""
     args = argparse.Namespace(
         both_meshes=True, multi_pod=False, graph_mode=None)
+    every = dryrun._jobs(args)
+    assert len(every) == 12 + len(LM_ARCHS) * 4 * 2 == len(set(every))
+    args.arch = "wbpr-maxflow"
     jobs = dryrun._jobs(args)
     assert len(jobs) == 12 == len(set(jobs))
     assert {dryrun.record_name(a, s, dryrun._mesh_tag(mp), m)
@@ -390,3 +421,61 @@ def test_cli_writes_a_graph_16m_record(tmp_path):
     assert rec["per_iter"]["step"]["collectives"]["by_op"] == \
         dryrun.expected_collectives(meta)["step"] == {
             "all-reduce": 2 * 4 * (2**24 + 2**22) * 255 / 256}
+
+
+# ---------------------------------------------------------------------------
+# the language-model cells
+# ---------------------------------------------------------------------------
+
+LM_MESH = tmesh.Mesh((2, 2), ("data", "model"))
+
+
+@pytest.fixture(scope="module")
+def lm_record():
+    """qwen3-4b SMOKE at 3 superblocks, a decode cell of 8 x 64 on a
+    (2, 2) mesh under the fake group, with the whole depth run too."""
+    cfg = dataclasses.replace(registry.get_smoke_config("qwen3-4b"),
+                              n_layers=3)
+    cell = shapes.ShapeCell("decode_small", "decode", 64, 8)
+    return cfg, dryrun.run_cell("qwen3-4b", cell, mesh=LM_MESH, cfg=cfg,
+                                device="cpu", reps=1, full_depth=True)
+
+
+def test_lm_record_fields(lm_record):
+    """The record has the reference's fields (``arch``, ``shape``,
+    ``mesh``, ``devices``, ``kind``, ``skipped``, ``opt``, ``analytic`` by
+    the reference's formula, ``extrapolated.{flops,collective_bytes}``)
+    and the port's (``full.memory`` from the shape trees, the variants'
+    costs, the device and torch); no kernel launched, the group closed."""
+    cfg, rec = lm_record
+    assert (rec["arch"], rec["shape"], rec["mesh"], rec["devices"],
+            rec["kind"], rec["skipped"], rec["opt"]) == (
+        "qwen3-4b", "decode_small", "2x2", 4, "decode", False, None)
+    assert rec["analytic"] == {
+        "params": cfg.param_count(), "active_params":
+            cfg.active_param_count(), "tokens": 8,
+        "model_flops": 2 * cfg.active_param_count() * 8}
+    mem = rec["full"]["memory"]["arg_bytes"]
+    assert mem["total"] == mem["params"] + mem["cache"] + mem["batch"] > 0
+    # the cache: 3 blocks x k, v x 4 rows x 32 slots x 2 kv heads x 16 x 4 B
+    assert mem["cache"] == 4 + 2 * 3 * 4 * 32 * 2 * 16 * 2
+    for k in ("c1", "c2"):
+        v = rec["variant_costs"][k]
+        assert v["flops"] > 0 and v["kernel_launches"] == 0
+        assert v["device_ms"] is None and v["aten_ops"] > 0
+    assert rec["device"] == "cpu" and rec["torch"] == torch.__version__
+    assert not dist.is_initialized()
+
+
+def test_lm_extrapolation_equals_the_whole_run(lm_record):
+    """``C1 + (n_blocks - 1)(C2 - C1)`` of the 1- and 2-superblock runs
+    equals the 3-superblock run exactly in flops, collective bytes (in
+    all and by kind) and aten ops."""
+    _, rec = lm_record
+    e, f = rec["extrapolated"], rec["full_run"]
+    assert f["n_layers"] == 3
+    assert e["flops"] == f["flops"] > 0
+    assert e["collective_bytes"] == f["collectives"]["total_bytes"] > 0
+    assert {k: v for k, v in e["collective_bytes_by_op"].items() if v} == \
+        f["collectives"]["by_op"]
+    assert e["aten_ops"] == f["aten_ops"]

@@ -267,7 +267,25 @@ def test_mlp_matches_jax(dtype):
 
 
 def test_tp_matmul_refuses_a_group():
+    """Once refused, a group is now the bf16 combine's (the combine over
+    two ranks is held in ``tests/test_torch_tp.py``): without one the
+    product is ``x @ w``; over a one-rank group it is the bf16-rounded
+    product."""
+    import socket
+
+    import torch.distributed as dist
+
     x, w = torch.ones(2, 4), torch.ones(4, 3)
     assert torch.equal(L.tp_matmul_bf16reduce(x, w, batch_axes=None), x @ w)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        L.tp_matmul_bf16reduce(x, w, batch_axes=None, group=object())
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        got = L.tp_matmul_bf16reduce(x * 1.001, w, batch_axes=None,
+                                     group=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ((x * 1.001) @ w).to(torch.bfloat16))

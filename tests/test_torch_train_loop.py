@@ -181,7 +181,7 @@ def test_elastic_rescale_roundtrip(tmp_path, writer):
                               "opt_state": opt.init(params)}, extra=extra)
         first = torch.from_numpy(np.asarray(
             jax.tree.leaves(params)[0]).astype(np.float32)).to(torch.bfloat16)
-    p2, o2, got = E.rescale_checkpoint(tmp_path, cfg, device="cpu")
+    p2, o2, got = E.rescale_checkpoint(tmp_path, cfg, "cpu")
     assert got["step"] == 7
     a = T.tree_leaves(p2)[0][1]
     assert a.dtype == torch.bfloat16
@@ -192,7 +192,7 @@ def test_elastic_rescale_roundtrip(tmp_path, writer):
     sh = E.shardings_for(cfg, "cpu")
     assert {p for p, _ in T.tree_leaves(sh["params"])} == {
         p for p, _ in T.tree_leaves(p2)}
-    assert E.rescale_checkpoint(tmp_path / "none", cfg, device="cpu") == (
+    assert E.rescale_checkpoint(tmp_path / "none", cfg, "cpu") == (
         None, None, None)
 
 
