@@ -1,0 +1,6 @@
+"""Push-relabel cycles of a max-flow request (``SolveStats.cycles``)."""
+from bench.lib import readers
+
+
+def read(ctx):
+    return readers.mean_counter(ctx, "cycles")
